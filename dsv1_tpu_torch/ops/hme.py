@@ -1,0 +1,219 @@
+"""Hierarchical motion estimation, batched over frame pairs (mirror of the
+`hme_batch` path of dsv1_tpu/ops/hme.py).
+
+The reference searches a luma pyramid top-down (hme.c:378-728): per
+block, candidate MVs inherited from 5 parent positions, SAD selection,
+a 9-point full-pel refine and, at level 0, an 8-point half-pel refine
+plus an HVS-driven intra/inter cascade. The per-block window work runs
+in ops/hme_kernels.py (CUDA kernels on the GPU); candidate construction,
+the chroma-variance term and the neighbour-coupled high-detail pass are
+tensor code here.
+"""
+
+import numpy as np
+import torch
+
+from dsv1_tpu.constants import (HP_SAD_SZ, MASK_ALL_INTRA, MODE_INTER,
+                                MODE_INTRA, format_h_shift, format_v_shift)
+
+from . import hme_kernels as hk
+from .cint import U32
+from .frame import FrameLayout, plane_view
+
+# parent candidate offsets (hme.c:454)
+PT = ((0, 0), (-2, 0), (2, 0), (0, -2), (0, 2))
+
+
+def _lvl_grid(level: int, nbh: int, nbv: int):
+    step = 1 << level
+    return step, np.arange(0, nbh, step), np.arange(0, nbv, step)
+
+
+def _build_cands_batched(level: int, mvf, nbh: int, nbv: int):
+    """mvf: (B, nbv, nbh, 2) -> (B, nb, 6) cmx, cmy (full-res units):
+    slot 0 the zero MV, slots 1-5 the parent-grid neighbours, zeroed
+    when out of grid or all-zero (hme.c:452-510)."""
+    step, ii, jj = _lvl_grid(level, nbh, nbv)
+    gj, gi = np.meshgrid(jj, ii, indexing="ij")
+    gi, gj = gi.reshape(-1), gj.reshape(-1)
+    B = mvf.shape[0]
+    dev = mvf.device
+    parent_mask = ~((step << 1) - 1)
+    pi, pj = gi & parent_mask, gj & parent_mask
+    zero = torch.zeros((B, gi.size), dtype=torch.int32, device=dev)
+    cxs, cys = [zero], [zero]
+    for (ox, oy) in PT:
+        x = pi + ox * step
+        y = pj + oy * step
+        ok = torch.as_tensor((x >= 0) & (x < nbh) & (y >= 0) & (y < nbv),
+                             device=dev)
+        xc = torch.as_tensor(np.clip(x, 0, nbh - 1), device=dev)
+        yc = torch.as_tensor(np.clip(y, 0, nbv - 1), device=dev)
+        mv = mvf[:, yc, xc]                               # (B, nb, 2)
+        keep = ok[None, :, None] & (mv != 0).any(-1, keepdim=True)
+        mv = torch.where(keep, mv, 0)
+        cxs.append(mv[..., 0])
+        cys.append(mv[..., 1])
+    return torch.stack(cxs, -1), torch.stack(cys, -1)
+
+
+def _lvl2d(flats, layout: FrameLayout):
+    """(B, flat) -> (B, EH, S) extended luma plane views."""
+    p = layout.planes[0]
+    start = layout.margin + p.offset - p.ext * p.stride - p.ext
+    EH = p.h + 2 * p.ext
+    return flats[:, start:start + EH * p.stride].reshape(
+        flats.shape[0], EH, p.stride)
+
+
+def _block_sqrvar_dense(imgs, layout: FrameLayout, c: int, cbw: int,
+                        cbh: int, nbh: int, nbv: int, ccw, cch):
+    """y_sqrvar (hme.c:247-267) over every grid-aligned block of plane c,
+    (B, nb) with the reference's u32 wrap; ccw/cch: clipped dims (nb,)."""
+    plane = plane_view(imgs, layout, c).to(torch.int64)
+    B, ph, pw = plane.shape
+    hp, wp = nbv * cbh, nbh * cbw
+    if (hp, wp) != (ph, pw):
+        plane = torch.nn.functional.pad(plane, (0, wp - pw, 0, hp - ph))
+    t = plane.reshape(B, nbv, cbh, nbh, cbw)
+    s = t.sum(dim=(2, 4)).reshape(B, -1)
+    ss = (t * t).sum(dim=(2, 4)).reshape(B, -1)
+    area = (ccw * cch).clamp(min=1).to(torch.int64)
+    return (ss - ((s * s) & U32) // area) & U32
+
+
+def refine_base_from_kernel(src_imgs, ref_imgs, layout: FrameLayout,
+                            blk_w: int, blk_h: int, nbh: int, nbv: int,
+                            subsamp: int, kouts):
+    """Finish level 0 from the base kernel's per-block outputs: the
+    chroma-variance cascade term (hme.c:667-682) and the neighbour-
+    coupled high_detail pass (hme.c:620-648). Batched over B pairs."""
+    mvx, mvy, flags, qbits, luma_tex, src_var = kouts
+    p = layout.planes[0]
+    dev = mvx.device
+    B = mvx.shape[0]
+    gj, gi = torch.meshgrid(torch.arange(nbv, device=dev),
+                            torch.arange(nbh, device=dev), indexing="ij")
+    bx, by = gi.reshape(-1) * blk_w, gj.reshape(-1) * blk_h
+    inframe = (bx < p.w) & (by < p.h)
+    bw_c = (p.w - bx).clamp(0, blk_w)
+    bh_c = (p.h - by).clamp(0, blk_h)
+
+    hs, vs = format_h_shift(subsamp), format_v_shift(subsamp)
+    cbw, cbh = blk_w >> hs, blk_h >> vs
+    ccw, cch = bw_c >> hs, bh_c >> vs
+    cvars = []
+    for imgs in (src_imgs, ref_imgs):
+        v = [_block_sqrvar_dense(imgs, layout, c, cbw, cbh, nbh, nbv,
+                                 ccw, cch) for c in (1, 2)]
+        cvars.append(torch.maximum(v[0], v[1]))
+    cvarS, cvarR = cvars
+
+    go_intra = ((flags & hk.FLAG_GO_INTRA) != 0) \
+        | (cvarR > ((4 * cvarS) & U32))
+    not_intra = (flags & hk.FLAG_NOT_INTRA) != 0
+    lo_tex = ((flags & hk.FLAG_LO_TEX) != 0).to(torch.int32)
+    lo_var = ((flags & hk.FLAG_LO_VAR) != 0).to(torch.int32)
+    submask = MASK_ALL_INTRA & ~qbits
+    is_intra = go_intra & ~not_intra & (submask != 0) & inframe
+    mode = torch.where(is_intra, MODE_INTRA, MODE_INTER).to(torch.int32)
+    submask = torch.where(is_intra, submask, 0).to(torch.int32)
+    mvx = torch.where(inframe, mvx, 0)
+    mvy = torch.where(inframe, mvy, 0)
+
+    def grid(x):
+        return x.reshape(B, nbv, nbh)
+
+    g_mode, g_lotex, g_lovar = grid(mode), grid(lo_tex), grid(lo_var)
+    strong = (g_mode == MODE_INTER) & (g_lotex == 0) & (g_lovar == 0)
+
+    def shifted(a, dy_, dx_):
+        out = torch.zeros_like(a)
+        out[:, dy_:, dx_:] = a[:, :a.shape[1] - dy_, :a.shape[2] - dx_]
+        return out
+
+    left, top, topleft = (shifted(strong, 0, 1), shifted(strong, 1, 0),
+                          shifted(strong, 1, 1))
+    HP = HP_SAD_SZ
+    thresh_var = torch.full((B, nbv, nbh), HP * HP, dtype=torch.int32,
+                            device=dev)
+    thresh_var = torch.where(left, thresh_var * HP, thresh_var)
+    thresh_var = torch.where(top, thresh_var * HP, thresh_var)
+    thresh_var = torch.where(topleft, thresh_var * (HP // 4), thresh_var)
+    thresh_tex = 1 + left.to(torch.int32) + top.to(torch.int32) \
+        + topleft.to(torch.int32)
+    high_detail = ((grid(luma_tex) > thresh_tex)
+                   & (grid(src_var) > thresh_var)
+                   & grid(inframe.expand(B, -1)))
+    return {
+        "mode": g_mode,
+        "mvx": grid(mvx),
+        "mvy": grid(mvy),
+        "submask": grid(submask),
+        "lo_tex": g_lotex,
+        "lo_var": g_lovar,
+        "high_detail": high_detail.to(torch.int32),
+        "nintra": is_intra.to(torch.int32).sum(dim=1),
+    }
+
+
+def hme_batch(src_flats, ref_flats, layouts, blk_w: int, blk_h: int,
+              nbh: int, nbv: int, subsamp: int, levels: int,
+              calls: list | None = None):
+    """Batched dsv_hme (effort 0) over a leading frame-pair axis.
+
+    src_flats/ref_flats: per pyramid level, (B, flat) u8 images (level 0
+    the full frame). Returns the level-0 dict with a leading B axis.
+    When `calls` is a list, each kernel call's (name, args) is appended
+    to it, so a caller can rerun a kernel on exactly these arguments."""
+    mvf = None
+    for level in range(levels, 0, -1):
+        lay = layouts[level]
+        step, ii, jj = _lvl_grid(level, nbh, nbv)
+        nbh_l, nbv_l = len(ii), len(jj)
+        nb = nbh_l * nbv_l
+        src2d = _lvl2d(src_flats[level], lay)
+        ref2d = _lvl2d(ref_flats[level], lay)
+        B = src2d.shape[0]
+        dev = src2d.device
+        if mvf is None:
+            cmx = torch.zeros((B, nb, 1), dtype=torch.int32, device=dev)
+            cmy = cmx
+        else:
+            cmx, cmy = _build_cands_batched(level, mvf, nbh, nbv)
+        p = lay.planes[0]
+        args = (src2d, ref2d, cmx, cmy, p.ext, p.w, p.h, nbh_l, nb, blk_w,
+                blk_h, level)
+        if calls is not None:
+            calls.append(("hme_refine", args))
+        dx, dy, _ = hk.refine_level(*args)
+        # block origin in level coords is (grid index * blk) >> level
+        infr = torch.as_tensor(
+            ((((ii * blk_w) >> level)[None, :] < p.w)
+             & (((jj * blk_h) >> level)[:, None] < p.h)).reshape(-1),
+            device=dev)
+        mvx = torch.where(infr[None, :], dx << level, 0)
+        mvy = torch.where(infr[None, :], dy << level, 0)
+        field = torch.stack([mvx, mvy], -1).reshape(B, nbv_l, nbh_l, 2)
+        mvf = torch.zeros((B, nbv, nbh, 2), dtype=torch.int32, device=dev)
+        mvf[:, ::step, ::step] = field.to(torch.int32)
+
+    lay = layouts[0]
+    src2d = _lvl2d(src_flats[0], lay)
+    ref2d = _lvl2d(ref_flats[0], lay)
+    B = src2d.shape[0]
+    nb = nbh * nbv
+    if mvf is None:
+        cmx = torch.zeros((B, nb, 1), dtype=torch.int32, device=src2d.device)
+        cmy = cmx
+    else:
+        cmx, cmy = _build_cands_batched(0, mvf, nbh, nbv)
+    p = lay.planes[0]
+    args = (src2d, ref2d, cmx, cmy, p.ext, p.w, p.h, nbh, nb, blk_w, blk_h)
+    if calls is not None:
+        calls.append(("hme_base", args))
+    kouts = hk.refine_base(*args)
+    out = refine_base_from_kernel(src_flats[0], ref_flats[0], lay, blk_w,
+                                  blk_h, nbh, nbv, subsamp, kouts)
+    out["intra_pct"] = out["nintra"] * 100 // (nbh * nbv)
+    return out

@@ -1,0 +1,349 @@
+"""HME search kernels: CUDA kernels + plain PyTorch versions.
+
+Replaces the Pallas kernels of dsv1_tpu/ops/pallas_hme.py:
+
+- `refine_level`: `_refine_kernel` (pallas_hme.py:130). One pyramid
+  level, per block: masked SAD against up to NC candidate MVs (shifted
+  `>> level`) with border-validity bounds and a strict first-minimum
+  pick, the full-pel clamp, then the 9-point XF/YF refine.
+- `refine_base`: `_base_kernel` (pallas_hme.py:339). Level 0 at effort
+  0: the same search, the 8-point half-pel refine on 14x14 windows with
+  the 4-tap filters applied in-kernel, block texture/variance with u32
+  wrap, the zero-MV intra test, the luma GO_INTRA cascade and the
+  quadrant good/evil metric.
+
+Windows are read from the unpadded extended (EH, S) plane with every
+origin clamped into it, as the Pallas bodies do (the C reference reads
+out of bounds there). The wrappers take the plain version for CPU
+tensors and launch csrc/hme.cu for CUDA tensors; there is no fallback.
+"""
+
+import torch
+
+from dsv1_tpu.constants import FRAME_BORDER
+
+from .cint import U32
+from .frame import flat_windows
+
+# search point tables (hme.c:422-427, 27-30)
+XF = (0, 1, -1, 0, 0, -1, 1, -1, 1)
+YF = (0, 0, 0, 1, -1, -1, -1, 1, 1)
+XH = (1, -1, 0, 0, -1, 1, -1, 1)
+YH = (0, 0, 1, -1, -1, -1, 1, 1)
+HP = 14      # HP_SAD_SZ
+NB_W = 24    # half-pel neighbourhood (>= HP + 2 origin + 3 taps)
+IMAX = 2**31 - 1
+
+# flag bits of refine_base's `flags` output (as in pallas_hme.py)
+FLAG_GO_INTRA = 1   # luma intra-cascade verdict (chroma term added later)
+FLAG_NOT_INTRA = 2  # block_intra_test: the block can't survive intra
+FLAG_LO_TEX = 4
+FLAG_LO_VAR = 8
+FLAG_HP_HIT = 16
+
+
+def _s32(x):
+    """int64 -> the int32 value of its low 32 bits (two's complement)."""
+    return ((x + 2**31) & U32) - 2**31
+
+
+class _Grid:
+    """Per-block geometry of one level (block t at grid (t % nbh_l,
+    t // nbh_l)) and a window gatherer over the batch of planes."""
+
+    def __init__(self, src2d, ref2d, E, w, h, nbh_l, nb, BW, BH):
+        B, EH, S = src2d.shape
+        dev = src2d.device
+        self.B, self.EH, self.S, self.E = B, EH, S, E
+        self.w, self.h, self.BW, self.BH = w, h, BW, BH
+        self.src = src2d.reshape(B, -1).contiguous().reshape(-1)
+        self.ref = ref2d.reshape(B, -1).contiguous().reshape(-1)
+        t = torch.arange(nb, device=dev)
+        self.bx = (t % nbh_l) * BW
+        self.by = torch.div(t, nbh_l, rounding_mode="floor") * BH
+        self.inframe = (self.bx < w) & (self.by < h)
+        self.bw_c = (w - self.bx).clamp(0, BW)
+        self.bh_c = (h - self.by).clamp(0, BH)
+        cols = torch.arange(BW, device=dev)[None, None, :]
+        rows = torch.arange(BH, device=dev)[None, :, None]
+        self.mask = ((cols < self.bw_c[:, None, None])    # (nb, BH, BW)
+                     & (rows < self.bh_c[:, None, None]))
+        self.boff = (torch.arange(B, device=dev) * (EH * S))[:, None]
+
+    def win(self, plane, rr, cc, H, W):
+        """(B, nb, H, W) int32 windows at origins (rr, cc), (B, nb)."""
+        base = self.boff + rr.to(torch.int64) * self.S + cc
+        return flat_windows(plane, base, H, W, self.S).to(torch.int32)
+
+    def srcw(self):
+        E, BH, BW = self.E, self.BH, self.BW
+        rr = (E + self.by).clamp(0, (self.EH - BH) & ~7)
+        cc = (E + self.bx).clamp(0, self.S - BW)
+        return self.win(self.src, rr.expand(self.B, -1),
+                        cc.expand(self.B, -1), BH, BW)
+
+    def sad(self, a, b):
+        d = (a - b).abs()
+        return torch.where(self.mask, d, 0).sum(dim=(-2, -1))
+
+
+def _search(g: _Grid, cm, NC: int, level: int, srcw):
+    """Candidate SADs + first-minimum pick + full-pel clamp + 9-point
+    refine. Returns (dx, dy, best) in level units, each (B, nb)."""
+    b = FRAME_BORDER
+    E, BW, BH, w, h = g.E, g.BW, g.BH, g.w, g.h
+    bsad = torch.full_like(g.bx.expand(g.B, -1), IMAX)
+    bk = torch.zeros_like(bsad)
+    for k in range(NC):
+        rx = g.bx + (cm[..., k] >> level)
+        ry = g.by + (cm[..., NC + k] >> level)
+        ok = ((rx >= -b) & (ry >= -b) & (rx + g.bw_c <= w + b)
+              & (ry + g.bh_c <= h + b) & g.inframe)
+        refw = g.win(g.ref, (E + ry).clamp(0, g.EH - BH),
+                     (E + rx).clamp(0, g.S - BW), BH, BW)
+        sad = torch.where(ok, g.sad(srcw, refw), IMAX)
+        take = sad < bsad
+        bk = torch.where(take, k, bk)
+        bsad = torch.where(take, sad, bsad)
+    bdx = cm[..., :NC].gather(-1, bk[..., None])[..., 0] >> level
+    bdy = cm[..., NC:].gather(-1, bk[..., None])[..., 0] >> level
+    bdx = torch.minimum(torch.maximum(bdx, -g.bw_c - g.bx), w - g.bx)
+    bdy = torch.minimum(torch.maximum(bdy, -g.bh_c - g.by), h - g.by)
+
+    rr = (E + g.by + bdy - 1).clamp(0, g.EH - (BH + 2))
+    cc = (E + g.bx + bdx - 1).clamp(0, g.S - (BW + 2))
+    padw = g.win(g.ref, rr, cc, BH + 2, BW + 2)
+    best = torch.full_like(bsad, IMAX)
+    m9 = torch.zeros_like(bsad)
+    for k in range(9):
+        oy, ox = YF[k] + 1, XF[k] + 1
+        sad = g.sad(srcw, padw[..., oy:oy + BH, ox:ox + BW])
+        take = sad < best
+        m9 = torch.where(take, k, m9)
+        best = torch.where(take, sad, best)
+    xf = torch.tensor(XF, device=m9.device)
+    yf = torch.tensor(YF, device=m9.device)
+    return bdx + xf[m9], bdy + yf[m9], best
+
+
+def _cands(cmx, cmy):
+    return torch.cat([cmx, cmy], dim=-1).to(torch.int32).contiguous()
+
+
+def refine_level_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH,
+                       level):
+    """Plain form of `_refine_kernel`: (dx, dy, best), each (B, nb)."""
+    g = _Grid(src2d, ref2d, E, w, h, nbh_l, nb, BW, BH)
+    cm = _cands(cmx, cmy)
+    return _search(g, cm, cmx.shape[-1], level, g.srcw())
+
+
+def _texture14(a):
+    """block_texture (hme.c:180-210) on (..., 14, 14) int32 windows:
+    (tex, avg, var) with var the reference's u32 result as int32."""
+    a = a.to(torch.int64)
+    s = a.sum(dim=(-2, -1))
+    ss = (a * a).sum(dim=(-2, -1))
+    sh = (a[..., :, 1:] - a[..., :, :-1]).abs().sum(dim=(-2, -1))
+    sv = (a[..., 1:, :] - a[..., :-1, :]).abs().sum(dim=(-2, -1))
+    n = HP * HP
+    tex = (sh + sv) // 2 // n
+    avg = s // n
+    var = _s32(ss - ((s * s) & U32) // n)
+    return tex, avg, var
+
+
+def refine_base_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
+    """Plain form of `_base_kernel`: (mvx, mvy, flags, qbits, luma_tex,
+    src_var), each (B, nb) int32."""
+    g = _Grid(src2d, ref2d, E, w, h, nbh_l, nb, BW, BH)
+    cm = _cands(cmx, cmy)
+    srcw = g.srcw()
+    dx, dy, best = _search(g, cm, cmx.shape[-1], 0, srcw)
+    S, EH = g.S, g.EH
+    i64 = torch.int64
+
+    # --- half-pel refine (hme.c:543-597)
+    yarea = g.bw_c * g.bh_c
+    yareasq = yarea * yarea
+    cx = g.bx + (g.bw_c >> 1) - HP // 2
+    cy = g.by + (g.bh_c >> 1) - HP // 2
+    srcw14 = g.win(g.src, (E + cy).clamp(0, EH - HP).expand(g.B, -1),
+                   (E + cx).clamp(0, S - HP).expand(g.B, -1), HP, HP)
+    A = cx + dx
+    Bc = cy + dy
+    nb_ = g.win(g.ref, (E + Bc - 2).clamp(0, EH - NB_W),
+                (E + A - 2).clamp(0, S - NB_W), NB_W, NB_W)
+    hu = 9 * (nb_[..., :, 1:-2] + nb_[..., :, 2:-1]) \
+        - (nb_[..., :, :-3] + nb_[..., :, 3:])
+    h8 = ((hu + 8) >> 4).clamp(0, 255)
+    v8 = ((9 * (nb_[..., 1:-2, :] + nb_[..., 2:-1, :])
+           - (nb_[..., :-3, :] + nb_[..., 3:, :]) + 8) >> 4).clamp(0, 255)
+    d8 = ((9 * (hu[..., 1:-2, :] + hu[..., 2:-1, :])
+           - (hu[..., :-3, :] + hu[..., 3:, :]) + 128) >> 8).clamp(0, 255)
+
+    def hp_window(k):
+        xh, yh = XH[k], YH[k]
+        r0, c0 = 2 + (yh >> 1), 2 + (xh >> 1)
+        if xh & 1 and yh & 1:
+            return d8[..., r0 - 1:r0 - 1 + HP, c0 - 1:c0 - 1 + HP]
+        if xh & 1:
+            return h8[..., r0:r0 + HP, c0 - 1:c0 - 1 + HP]
+        return v8[..., r0 - 1:r0 - 1 + HP, c0:c0 + HP]
+
+    do_hp = (best > BW * BH) & g.inframe
+    run_best = torch.div(best * (HP * HP), yarea.clamp(min=1),
+                         rounding_mode="trunc")
+    run_m = torch.full_like(best, -1)
+    wins = []
+    for k in range(8):
+        wk = hp_window(k)
+        wins.append(wk)
+        s = (srcw14 - wk).abs().sum(dim=(-2, -1))
+        take = s < run_best
+        run_m = torch.where(take, k, run_m)
+        run_best = torch.where(take, s, run_best)
+    hp_hit = do_hp & (run_m >= 0)
+    xh_t = torch.tensor(XH, device=best.device)
+    yh_t = torch.tensor(YH, device=best.device)
+    mk = run_m.clamp(min=0)
+    mvx = torch.where(hp_hit, (dx << 1) + xh_t[mk], dx << 1)
+    mvy = torch.where(hp_hit, (dy << 1) + yh_t[mk], dy << 1)
+    best = torch.where(hp_hit, torch.div(run_best * yarea, HP * HP,
+                                         rounding_mode="trunc"), best)
+
+    # --- chosen and source centre-window statistics
+    selw = nb_[..., 2:2 + HP, 2:2 + HP]
+    for k in range(8):
+        sel = (hp_hit & (run_m == k))[..., None, None]
+        selw = torch.where(sel, wins[k], selw)
+    rtex, ravg, rvar = _texture14(selw)
+    stex, savg, svar = _texture14(srcw14)
+
+    # --- block metrics with u32 wrap (hme.c:598-648)
+    mm = g.mask
+    sm = torch.where(mm, srcw, 0).to(i64)
+    s_sum = sm.sum(dim=(-2, -1))
+    s_ss = (sm * sm).sum(dim=(-2, -1))
+    dh = (srcw[..., :, 1:] - srcw[..., :, :-1]).abs()
+    dv = (srcw[..., 1:, :] - srcw[..., :-1, :]).abs()
+    sh_ = torch.where(mm[..., :, 1:], dh, 0).sum(dim=(-2, -1))
+    sv_ = torch.where(mm[..., 1:, :], dv, 0).sum(dim=(-2, -1))
+    area = yarea.clamp(min=1).to(i64)
+    luma_tex = torch.div(torch.div(sh_ + sv_, 2, rounding_mode="trunc"),
+                         area, rounding_mode="trunc")
+    luma_var = (s_ss - ((s_sum * s_sum) & U32) // area) & U32
+    lo_tex = (luma_tex <= 2) & g.inframe
+    lo_var = (yareasq.to(i64) > luma_var) & g.inframe
+
+    # zero-MV window: zvar + block_intra_test (hme.c:143-178,653)
+    zerow = g.win(g.ref,
+                  (E + g.by).clamp(0, (EH - BH) & ~7).expand(g.B, -1),
+                  (E + g.bx).clamp(0, S - BW).expand(g.B, -1), BH, BW)
+    zu = torch.where(mm, zerow, 0).to(i64)
+    z_s = zu.sum(dim=(-2, -1))
+    z_ss = (zu * zu).sum(dim=(-2, -1))
+    zvar = (z_ss - ((z_s * z_s) & U32) // area) & U32
+    ravg0 = (z_s // area)[..., None, None]
+    inner = (srcw - ravg0 + 128).clamp(0, 255)
+    dif0 = (ravg0 + inner - 128).clamp(0, 255)
+    not_intra = ((dif0 != srcw) & mm).any(dim=-1).any(dim=-1)
+
+    go_intra = (((stex < 2) & (zvar > ((luma_var * 2) & U32)))
+                | (rvar > _s32(svar * 2))
+                | ((stex == 0) & (rtex != 0))
+                | ((savg - ravg).abs() > 8)
+                | ((luma_tex <= 10) & (best > yareasq // 16)))
+
+    # --- sub-block intra metric (hme.c:89-134,684-712)
+    sbw = (g.bw_c // 2)[:, None, None]
+    sbh = (g.bh_c // 2)[:, None, None]
+    dif_f = (srcw - zerow).abs()
+    ngood_f = torch.where(dif_f == 0, 192, torch.where(
+        dif_f == 1, 128, torch.where(dif_f == 2, 96, 0)))
+    nevil_f = torch.where(dif_f > 2, dif_f, 0)
+    zdh = (zerow[..., :, 1:] - zerow[..., :, :-1]).abs()
+    zdv = (zerow[..., 1:, :] - zerow[..., :-1, :]).abs()
+    gh_f = torch.nn.functional.pad(dh + zdh, (1, 0))
+    gv_f = torch.nn.functional.pad(dv + zdv, (0, 0, 1, 0))
+    cols = torch.arange(BW, device=srcw.device)[None, None, :]
+    rows = torch.arange(BH, device=srcw.device)[None, :, None]
+    ethr = ((sbw + sbh) >> 1)[:, 0, 0]
+    qb = torch.zeros_like(best)
+    for qy in (0, 1):
+        for qx in (0, 1):
+            lcol = cols - qx * sbw
+            lrow = rows - qy * sbh
+            qm = (lcol >= 0) & (lcol < sbw) & (lrow >= 0) & (lrow < sbh)
+            good = (torch.where(qm, ngood_f, 0).sum(dim=(-2, -1))
+                    + torch.where(qm & (lcol >= 1), gh_f, 0)
+                    .sum(dim=(-2, -1))
+                    + torch.where(qm & (lrow >= 1), gv_f, 0)
+                    .sum(dim=(-2, -1)))
+            evil = torch.where(qm, nevil_f, 0).sum(dim=(-2, -1))
+            clear = (stex > 1) & (good >= ethr * evil)
+            qb = qb | torch.where(clear, 1 << (qy * 2 + qx), 0)
+
+    flags = (torch.where(go_intra, FLAG_GO_INTRA, 0)
+             | torch.where(not_intra, FLAG_NOT_INTRA, 0)
+             | torch.where(lo_tex, FLAG_LO_TEX, 0)
+             | torch.where(lo_var, FLAG_LO_VAR, 0)
+             | torch.where(hp_hit, FLAG_HP_HIT, 0))
+    i32 = torch.int32
+    return (mvx.to(i32), mvy.to(i32), flags.to(i32), qb.to(i32),
+            luma_tex.to(i32), svar.to(i32))
+
+
+def _check_planes(src2d, ref2d, cmx, cmy):
+    for t in (src2d, ref2d):
+        if t.dtype != torch.uint8 or t.dim() != 3 or t.stride(2) != 1 \
+                or t.stride(1) != t.shape[2]:
+            raise ValueError("planes must be (B, EH, S) uint8 with "
+                             "contiguous rows")
+    if src2d.shape != ref2d.shape or src2d.stride(0) != ref2d.stride(0):
+        raise ValueError("src and ref planes must have the same layout")
+    if cmx.shape != cmy.shape or cmx.shape[0] != src2d.shape[0]:
+        raise ValueError("candidate fields must be (B, nb, NC)")
+
+
+def refine_level(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH, level):
+    """One coarse pyramid level: (dx, dy, best) in level units, (B, nb).
+    src2d/ref2d: (B, EH, S) u8 extended planes; cmx/cmy: (B, nb, NC)
+    candidate MVs in full-res units."""
+    if not src2d.is_cuda:
+        return refine_level_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l,
+                                  nb, BW, BH, level)
+    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
+    _check_planes(src2d, ref2d, cmx, cmy)
+    B, EH, S = src2d.shape
+    cm = _cands(cmx, cmy)
+    outs = [torch.empty((B, nb), dtype=torch.int32, device=src2d.device)
+            for _ in range(3)]
+    err = lib().dsv1_hme_refine(
+        src2d.data_ptr(), ref2d.data_ptr(), cm.data_ptr(), src2d.stride(0),
+        EH, S, E, w, h, nbh_l, nb, BW, BH, cmx.shape[-1], level, B,
+        *[o.data_ptr() for o in outs], stream_ptr(src2d))
+    check(err, "dsv1_hme_refine")
+    LAUNCHES["hme_refine"] += 1
+    return tuple(outs)
+
+
+def refine_base(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
+    """Level 0 at effort 0: (mvx, mvy, flags, qbits, luma_tex, src_var),
+    each (B, nb) int32."""
+    if not src2d.is_cuda:
+        return refine_base_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l,
+                                 nb, BW, BH)
+    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
+    _check_planes(src2d, ref2d, cmx, cmy)
+    B, EH, S = src2d.shape
+    cm = _cands(cmx, cmy)
+    outs = [torch.empty((B, nb), dtype=torch.int32, device=src2d.device)
+            for _ in range(6)]
+    err = lib().dsv1_hme_base(
+        src2d.data_ptr(), ref2d.data_ptr(), cm.data_ptr(), src2d.stride(0),
+        EH, S, E, w, h, nbh_l, nb, BW, BH, cmx.shape[-1], B,
+        *[o.data_ptr() for o in outs], stream_ptr(src2d))
+    check(err, "dsv1_hme_base")
+    LAUNCHES["hme_base"] += 1
+    return tuple(outs)

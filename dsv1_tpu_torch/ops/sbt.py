@@ -1,0 +1,243 @@
+"""Subband (wavelet) transforms, integer-exact (mirror of dsv1_tpu/ops/sbt.py).
+
+Per level a 2D Haar into LL/LH/HL/HH quadrants (reference sbt.c:267-349)
+with truncating 4/5 LL scaling, plus the biorthogonal 4-tap transform
+(B4T) on level 1 of intra frames (sbt.c:90-265). The luma inverse nudges
+LH/HL toward the local LL gradient, bounded by +-hqp (sbt.c:437-574).
+
+As in the JAX package, the decomposition carries the active LL region
+between levels and assembles the quadrant layout once at the end; the
+inverse reads each level's band pieces from the original array. Odd
+dimensions are edge-replicated (forward) and zero-padded (inverse).
+`is_p` is a python bool here: the caller knows each frame's type.
+B4T is defined for even dimensions only, as in the JAX package.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from dsv1_tpu.constants import MAXLVL, MINQUANT, QP_I, QP_P, round_shift
+
+from .cint import lb2, round2, round4, round8, tdiv, trunc_div
+
+
+def nlevels(w: int, h: int) -> int:
+    """C.3.3 num_levels (sbt.c:616-628)."""
+    return lb2(max(w, h))
+
+
+def get_quant(q: int, is_p: bool, level: int) -> int:
+    """C.2.2 get_quant_lower_frequency (hzcc.c:77-92)."""
+    if is_p:
+        q = tdiv(q * 3, 2)
+    if level == 1:
+        q = tdiv(q * 2, 3)
+    elif level == 2:
+        q = tdiv(q * 3, 2)
+    return max(q, MINQUANT)
+
+
+def _scale_fwd(v):
+    return trunc_div(v * 4, 5)
+
+
+def _scale_inv(v):
+    return trunc_div(v * 5, 4)
+
+
+def _pad_even(r):
+    """Edge-replicate to even dims (the C oddw/oddh branches)."""
+    hs, ws = r.shape
+    if ws & 1:
+        r = torch.cat([r, r[:, -1:]], dim=1)
+    if hs & 1:
+        r = torch.cat([r, r[-1:, :]], dim=0)
+    return r
+
+
+def _quad_dims(W: int, H: int, lvl: int):
+    """Active region + quadrant dims at a level (sbt.c:630-651)."""
+    ws = round_shift(W, lvl - 1)
+    hs = round_shift(H, lvl - 1)
+    return ws, hs, (ws + 1) // 2, (hs + 1) // 2, ws // 2, hs // 2
+
+
+def _haar_fwd_region(r, scale_ll: bool):
+    """C.3.1.2 Haar forward on the carried region: returns LL (ch,cw),
+    LH (ch,fw), HL (fh,cw), HH (fh,fw)."""
+    hs, ws = r.shape
+    fw, fh = ws // 2, hs // 2
+    rp = _pad_even(r)
+    x0 = rp[0::2, 0::2]
+    x1 = rp[0::2, 1::2]
+    x2 = rp[1::2, 0::2]
+    x3 = rp[1::2, 1::2]
+    LL = x0 + x1 + x2 + x3
+    LH = x0 - x1 + x2 - x3
+    HL = x0 + x1 - x2 - x3
+    HH = x0 - x1 - x2 + x3
+    if scale_ll:
+        LL = _scale_fwd(LL)
+    return LL, LH[:, :fw], HL[:fh, :], HH[:fh, :fw]
+
+
+def _assemble(LL, LH, HL, HH):
+    top = torch.cat([LL, LH], dim=1)
+    if HL.shape[0] == 0:
+        return top
+    return torch.cat([top, torch.cat([HL, HH], dim=1)], dim=0)
+
+
+def _interleave2x2(a00, a01, a10, a11):
+    ch, cw = a00.shape
+    ev = torch.stack([a00, a01], dim=2).reshape(ch, 2 * cw)
+    od = torch.stack([a10, a11], dim=2).reshape(ch, 2 * cw)
+    return torch.stack([ev, od], dim=1).reshape(2 * ch, 2 * cw)
+
+
+def _check_even(n: int):
+    if n % 2:
+        raise ValueError("B4T (intra level 1) requires even dimensions")
+
+
+def _b4t_fwd_rows(a):
+    """C.3.2.1 forward B4T down the rows of a (even count)."""
+    _check_even(a.shape[0])
+    even, odd = a[0::2], a[1::2]
+    x0 = torch.cat([odd[:1], odd[:-1]], dim=0)
+    x3 = torch.cat([even[1:], odd[-1:]], dim=0)
+    L = round2(3 * (even + odd) - x0 - x3)
+    H = round2(x0 - 3 * even + 3 * odd - x3)
+    return torch.cat([L, H], dim=0)
+
+
+def _b4t_inv_rows(a):
+    """C.3.2.2 inverse B4T down the rows of a (even count)."""
+    n = a.shape[0]
+    _check_even(n)
+    m = n // 2
+    L, H = a[:m], a[m:]
+    Lp = torch.cat([L[:1], L[:-1]], dim=0)
+    Hp = torch.cat([H[:1], H[:-1]], dim=0)
+    Ln = torch.cat([L[1:], L[-1:]], dim=0)
+    Hn = torch.cat([H[1:], H[-1:]], dim=0)
+    evens = round8(Lp + 3 * L + Hp - 3 * H)
+    odds = round8(3 * L + Ln + 3 * H - Hn)
+    return torch.stack([evens, odds], dim=1).reshape(n, a.shape[1])
+
+
+def _b4t_fwd_2d(a):
+    """fwd_b4t_2d (sbt.c:240-251): rows then columns."""
+    return _b4t_fwd_rows(_b4t_fwd_rows(a.T).T)
+
+
+def _b4t_inv_2d(a):
+    """inv_b4t_2d (sbt.c:253-265): columns then rows."""
+    return _b4t_inv_rows(_b4t_inv_rows(a).T).T
+
+
+def fwd_sbt(coefs, is_p: bool):
+    """dsv_fwd_sbt (sbt.c:630-651) on centered int32 coefs (H, W)."""
+    H, W = coefs.shape
+    lvls = nlevels(W, H)
+    cur = coefs.to(torch.int32)
+    pieces = [None] * (lvls + 1)
+    for i in range(1, lvls + 1):
+        if i == 1 and not is_p:
+            b = _b4t_fwd_2d(cur)
+            ch, cw = (H + 1) // 2, (W + 1) // 2
+            LL, LH, HL, HH = b[:ch, :cw], b[:ch, cw:], b[ch:, :cw], b[ch:, cw:]
+        else:
+            LL, LH, HL, HH = _haar_fwd_region(cur, scale_ll=i > 1)
+        pieces[i] = (LH, HL, HH)
+        cur = LL
+    for i in range(lvls, 0, -1):
+        cur = _assemble(cur, *pieces[i])
+    return cur.contiguous()
+
+
+def _hqp_for_level(q: int, is_p: bool, i: int) -> int:
+    """C.3.1.4 get_HQP (sbt.c:667-696)."""
+    llq = tdiv(get_quant(q, is_p, 0), 2)
+    if i > 3:
+        return llq
+    hqp = get_quant(q, is_p, MAXLVL - i)
+    if i == 1:
+        hqp = min(max(lb2(hqp) - (QP_P if is_p else QP_I), 1), 24)
+        hqp = (1 << hqp) >> 1
+    return tdiv(hqp, 2)
+
+
+def _nudge(LLv, lo, hi, band, mask, hqp: int):
+    mx = LLv - hi
+    mn = lo - LLv
+    mn2 = torch.minimum(mn, mx)
+    mx2 = torch.maximum(mn, mx)
+    mx3 = mx2.clamp(max=0)
+    mn3 = mn2.clamp(min=0)
+    t = round4(lo - hi)
+    nd = round2(torch.minimum(torch.maximum(t, mx3), mn3) - band * 2)
+    nd = nd.clamp(-hqp, hqp)
+    return torch.where(mask & (mx3 != mn3), band + nd, band)
+
+
+def _haar_inv_region(cur, lh_col, hl_row, LH, HL, HH, ws: int, hs: int,
+                     scale: bool, filtered: bool, hqp: int):
+    """C.3.1.3/C.3.1.4 Haar inverse, one level (sbt.c:351-574), on the
+    carried LL region (see the JAX twin for the neighbour reads)."""
+    ch, cw = cur.shape
+    fw, fh = ws // 2, hs // 2
+    inv_scale = _scale_inv if scale else (lambda v: v)
+    LL = inv_scale(cur)
+    if filtered:
+        dev = cur.device
+        lp = inv_scale(torch.cat([cur[:, :1], cur[:, :cw - 1]], dim=1))
+        ln = inv_scale(torch.cat([cur[:, 1:], lh_col], dim=1))
+        col = torch.arange(cw, device=dev)
+        row = torch.arange(ch, device=dev)
+        in_x = ((col >= 1) & (col <= fw - 1))[None, :] \
+            & (row <= fh - 1)[:, None]
+        LH = _nudge(LL, lp, ln, LH, in_x, hqp)
+        up = inv_scale(torch.cat([cur[:1, :], cur[:ch - 1, :]], dim=0))
+        dn = inv_scale(torch.cat([cur[1:, :], hl_row], dim=0))
+        in_y = ((row >= 1) & (row <= fh - 1))[:, None] \
+            & (col <= fw - 1)[None, :]
+        HL = _nudge(LL, up, dn, HL, in_y, hqp)
+    a00 = trunc_div(LL + LH + HL + HH, 4)
+    a01 = trunc_div(LL - LH + HL - HH, 4)
+    a10 = trunc_div(LL + LH - HL - HH, 4)
+    a11 = trunc_div(LL - LH - HL + HH, 4)
+    return _interleave2x2(a00, a01, a10, a11)[:hs, :ws]
+
+
+def inv_sbt(coefs, q: int, is_p: bool, is_luma: bool):
+    """dsv_inv_sbt (sbt.c:653-714) on int32 coefs (H, W)."""
+    H, W = coefs.shape
+    lvls = nlevels(W, H)
+    a = coefs.to(torch.int32)
+    _, _, cwl, chl, _, _ = _quad_dims(W, H, lvls)
+    cur = a[:chl, :cwl]
+    for i in range(lvls, 0, -1):
+        ws, hs, cw, ch, fw, fh = _quad_dims(W, H, i)
+        hqp = _hqp_for_level(q, is_p, i) if is_luma else 0
+        LHr = a[0:ch, cw:cw + fw]
+        LH = F.pad(LHr, (0, cw - fw))
+        HL = F.pad(a[ch:ch + fh, 0:cw], (0, 0, 0, ch - fh))
+        HH = F.pad(a[ch:ch + fh, cw:cw + fw], (0, cw - fw, 0, ch - fh))
+        lh_col = a[0:ch, cw:cw + 1]
+        hl_row = a[ch:ch + 1, 0:cw]
+        if i > 1 or is_p:
+            cur = _haar_inv_region(cur, lh_col, hl_row, LH, HL, HH, ws, hs,
+                                   scale=i > 1, filtered=is_luma, hqp=hqp)
+        else:
+            # B4T reads the raw bands: the level-1 in-place state is the
+            # reconstructed LL corner + the original band rows
+            full = torch.cat([torch.cat([cur, LHr], dim=1), a[ch:hs, 0:ws]],
+                             dim=0)
+            cur = _b4t_inv_2d(full)
+    return cur.contiguous()
+
+
+def coefs_to_plane(coefs):
+    """sbc2int (C.3.3, sbt.c:594-614): +128 and clamp to u8."""
+    return (coefs + 128).clamp(0, 255).to(torch.uint8)

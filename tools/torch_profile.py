@@ -1,0 +1,115 @@
+"""Where the time goes in the port's GPU encode and decode.
+
+Encodes one golden clip (tools/torch_golden.py) with
+`dsv1_tpu_torch.encode_stream_gops` on the GPU under torch.profiler and
+reads the per-GOP layer spans the encoder records (`gop.upload`,
+`gop.motion`, `gop.recon_chain`, `gop.pack`; parallel/gop.py), the
+device busy share and the top device kernels; then profiles the decode
+of the stream the same way. The same encode also runs once without the
+profiler, so the profiler's own cost shows. Needs a CUDA device.
+
+    python3 tools/torch_profile.py [--clip cif|1080p] [--out FILE]
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+# dsv1_tpu/__init__.py imports jax whenever JAX_PLATFORMS is set
+os.environ.pop("JAX_PLATFORMS", None)
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+SPANS = ("gop.upload", "gop.motion", "gop.recon_chain", "gop.pack")
+
+
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def profile(fn):
+    """One fn() call under torch.profiler: (wall seconds, device busy
+    share, host seconds per encoder span, top device kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    _sync()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = _sync() - t0
+    rows, spans = [], {}
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.key in SPANS:
+            # a span also shows as a device-side range: not a kernel
+            if e.device_type == DeviceType.CPU:
+                spans[e.key] = e.cpu_time_total * 1e-6
+            continue
+        if e.device_type != DeviceType.CUDA:
+            continue   # host ops; their kernels are listed on their own
+        dt_us = e.self_device_time_total
+        if dt_us > 0:
+            busy_us += dt_us
+            rows.append((dt_us, e.count, e.key))
+    rows.sort(reverse=True)
+    torch.cuda.synchronize()
+    return wall, busy_us * 1e-6 / wall, spans, rows[:15]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--clip", choices=("cif", "1080p"), default="1080p")
+    ap.add_argument("--out", default=None, help="also write JSON here")
+    args = ap.parse_args()
+    import subprocess
+
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from tools.torch_golden import GOP, QUALITY_PCT, clip_frames
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile: needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    dev = torch.device("cuda", 0)
+    _yuv, frames = clip_frames(args.clip)
+    h, w = frames[0][0].shape
+    meta = dt.Metadata(w, h, dt.SUBSAMP_420)
+    cfg = dt.EncoderConfig(quality=dt.quality_percent(QUALITY_PCT), gop=GOP,
+                           stable_refresh=GOP - 1)
+
+    def encode():
+        return dt.encode_stream_gops(frames, meta, cfg, device=dev)
+
+    stream = encode()   # warm-up
+    t0 = _sync()
+    encode()
+    plain_wall = _sync() - t0
+    enc_wall, enc_busy, spans, enc_top = profile(encode)
+    dec_wall, dec_busy, _, dec_top = profile(
+        lambda: dt.decode_stream_gops(stream, device=dev))
+    res = {"clip": args.clip, "frames": len(frames), "card": card,
+           "encode": {"wall_s": plain_wall, "profiled_wall_s": enc_wall,
+                      "spans_s": spans, "device_busy_share": enc_busy,
+                      "top_kernels_us": enc_top},
+           "decode": {"profiled_wall_s": dec_wall,
+                      "device_busy_share": dec_busy,
+                      "top_kernels_us": dec_top}}
+    print(json.dumps(res, indent=1))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(res, indent=1))
+
+
+if __name__ == "__main__":
+    main()
