@@ -1,29 +1,39 @@
 """dsv1_tpu_torch — the DSV1 codec in PyTorch, with CUDA kernels for Hopper.
 
 A port of the JAX package `dsv1_tpu` (which stays the reference): the
-GOP-parallel CRF encode and its decode twin. Tensor work is PyTorch; the
-three per-block kernels of the main path (motion-compensated prediction,
-the coarse-level HME search and the level-0 HME search with the luma
-intra cascade) are CUDA C++ for sm_90a, built by nvcc at first use
-(kernels/build.py). Every entry point takes an explicit `device`: on
-"cuda" the kernels run, on "cpu" their plain PyTorch versions do.
+GOP-parallel encode with CRF or the reference's per-frame ABR law
+(`encode_stream_gops`), its decode twin (`decode_stream_gops`,
+`iter_decode_gops`) and the CLI's default path
+(`python -m dsv1_tpu_torch.cli e|d`). Tensor work is PyTorch; the five
+per-block or per-level kernels of that path (motion-compensated
+prediction, the coarse-level HME search, the level-0 HME search with the
+luma intra cascade, which also serves the JAX package's banded 4K form,
+and the forward Haar level) are CUDA C++ for sm_90a, built by nvcc at
+first use (kernels/build.py). Every entry point runs on "cuda" unless
+the caller passes device="cpu", where each kernel's plain PyTorch
+version runs.
 
-The port imports torch and never jax. From the JAX package it reuses
-only the modules that never import jax: constants, models.metadata,
-models.bitstream, ops.golomb, bits (native packing) and utils.yuv.
+The port imports torch and never jax, and nothing of the JAX package:
+it owns its copies of the jax-free modules it needs (constants,
+models.metadata, models.bitstream, ops.golomb, bits with
+native/dsvbits.cpp, utils.yuv, utils.bitrate, utils.chroma, and the
+clip generators in utils.corpus).
 """
 
-from dsv1_tpu.constants import (MAX_QUALITY, SUBSAMP_411, SUBSAMP_420,
-                                SUBSAMP_422, SUBSAMP_444, quality_percent)
-from dsv1_tpu.models.metadata import Metadata
+from .constants import (MAX_QUALITY, RATE_CONTROL_ABR, RATE_CONTROL_CRF,
+                        SUBSAMP_411, SUBSAMP_420, SUBSAMP_422, SUBSAMP_444,
+                        quality_percent)
+from .models.metadata import Metadata
 
 from .models.encoder import EncoderConfig
-from .parallel import decode_stream_gops, encode_stream_gops
+from .parallel import decode_stream_gops, encode_stream_gops, \
+    iter_decode_gops
 from .state import EncoderState, state_from_numpy
 
 __all__ = ["SUBSAMP_444", "SUBSAMP_422", "SUBSAMP_420", "SUBSAMP_411",
-           "MAX_QUALITY", "quality_percent", "Metadata", "EncoderConfig",
-           "EncoderState", "state_from_numpy", "encode_stream_gops",
-           "decode_stream_gops"]
+           "MAX_QUALITY", "RATE_CONTROL_ABR", "RATE_CONTROL_CRF",
+           "quality_percent", "Metadata", "EncoderConfig", "EncoderState",
+           "state_from_numpy", "encode_stream_gops", "decode_stream_gops",
+           "iter_decode_gops"]
 
 __version__ = "0.1.0"

@@ -1,19 +1,17 @@
-"""Device selection: explicit, never automatic.
+"""Device selection: the card unless the caller asks for the CPU.
 
-Every public entry point of the port takes a `device`. On "cuda" the
-hand-written kernels run; on "cpu" each kernel wrapper takes its plain
-PyTorch version (used by the tests, which run without a GPU). Asking
+Every public entry point of the port takes a `device`, "cuda" by
+default. On "cuda" the hand-written kernels run; on "cpu" (what the
+tests pass) each kernel wrapper takes its plain PyTorch version. Asking
 for CUDA where there is none raises: there is no quiet CPU fallback.
 """
 
 import torch
 
 
-def resolve(device) -> torch.device:
+def resolve(device="cuda") -> torch.device:
     """torch.device for `device` ("cuda", "cuda:0", "cpu" or a
     torch.device); raises if CUDA is asked for and not available."""
-    if device is None:
-        raise ValueError("pass device='cuda' or device='cpu' explicitly")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not "
@@ -21,4 +19,3 @@ def resolve(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-

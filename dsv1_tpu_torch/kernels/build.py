@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels (nvcc -> shared library -> ctypes).
 
-At first use, `nvcc` compiles every `dsv1_tpu_torch/csrc/*.cu` into one
-shared library with a plain C interface, under `build/torch_kernels/`
-of the checkout, named by a hash of the sources (a changed source builds
+At first use, one `nvcc -c` per `dsv1_tpu_torch/csrc/*.cu`, all started
+together, compiles the sources, and one more links them into a shared
+library with a plain C interface, under `build/torch_kernels/` of the
+checkout, named by a hash of the sources (a changed source builds
 anew). The library is loaded with ctypes: pointers and the stream go as
 `c_void_p`, ints as `c_int`/`c_int64`. Each C entry point returns
 `cudaGetLastError()` after its launch; `check()` raises if it is not 0.
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 # launches per kernel: each wrapper adds one where it launches its kernel
 LAUNCHES = collections.Counter()
@@ -58,11 +59,22 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                    *[str(s) for s in _sources()]], check=True)
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(src)])
+             for src, o in zip(_sources(), objs)]
+    codes = [p.wait() for p in procs]
+    if any(codes):
+        raise RuntimeError(f"nvcc failed: exit codes {codes} for "
+                           f"{[s.name for s in _sources()]}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                    *[str(o) for o in objs]], check=True)
     os.replace(tmp, out)
+    for o in objs:
+        o.unlink()
     BUILD_SECONDS = time.perf_counter() - t0
     return out
 
@@ -79,7 +91,9 @@ def lib():
                                       I, I, I, I, P, P, P, P]
         L.dsv1_hme_base.argtypes = [P, P, P, I64, I, I, I, I, I, I, I, I,
                                     I, I, I, P, P, P, P, P, P, P]
-        for fn in (L.dsv1_mc_predict, L.dsv1_hme_refine, L.dsv1_hme_base):
+        L.dsv1_haar_fwd.argtypes = [P, I64, I, I, P, P, I64, I, P]
+        for fn in (L.dsv1_mc_predict, L.dsv1_hme_refine, L.dsv1_hme_base,
+                   L.dsv1_haar_fwd):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

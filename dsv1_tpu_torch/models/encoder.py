@@ -14,11 +14,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from dsv1_tpu import bits
-from dsv1_tpu.constants import (FOURCC, MAX_BLOCK_SIZE, MAX_PYRAMID_LEVELS,
-                                MAX_QP_BITS, MIN_BLOCK_SIZE, VERSION_MINOR,
-                                make_pt, quality_percent, round_pow2,
-                                round_shift)
+from .. import bits
+from ..constants import (FOURCC, MAX_BLOCK_SIZE, MAX_PYRAMID_LEVELS,
+                         MAX_QP_BITS, MAX_QUALITY, MIN_BLOCK_SIZE,
+                         RATE_CONTROL_CRF, VERSION_MINOR, make_pt,
+                         quality_percent, round_pow2, round_shift)
 
 from ..ops import bmc, frame as fr, hzcc, sbt
 from ..ops.cint import lb2
@@ -48,16 +48,25 @@ def auto_pyramid_levels(w: int, h: int, nbh: int, nbv: int) -> int:
 
 @dataclass
 class EncoderConfig:
-    """The knobs of the GOP-parallel CRF encode (defaults: dsv_enc_init,
-    dsv_encoder.c:696-722). Rate control is CRF at `quality`; the JAX
-    package's ABR and effort knobs have no counterpart in the port."""
+    """The encoder's knobs, as the JAX package's EncoderConfig (defaults:
+    dsv_enc_init, dsv_encoder.c:696-722). rc_mode picks CRF at `quality`
+    or the per-frame ABR law toward `bitrate`; the port encodes effort 0
+    only."""
     quality: int = quality_percent(85)
     gop: int = 24
     do_scd: bool = True
+    rc_mode: int = RATE_CONTROL_CRF
+    rc_high_motion_nudge: bool = True
+    bitrate: int = 2**31 - 1
+    max_q_step: int = MAX_QUALITY * 1 // 200
+    min_quality: int = quality_percent(1)
+    max_quality: int = quality_percent(95)
+    min_I_frame_quality: int = quality_percent(5)
     intra_pct_thresh: int = 50
     scene_change_delta: int = 4
     stable_refresh: int = 14
     pyramid_levels: int = 0
+    effort: int = 0
 
 
 @lru_cache(maxsize=16)

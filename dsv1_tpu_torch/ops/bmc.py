@@ -11,7 +11,7 @@ in ops/mc.py (the MC kernel on CUDA).
 import torch
 import torch.nn.functional as F
 
-from dsv1_tpu.constants import FRAME_BORDER, MODE_INTER, format_h_shift, \
+from ..constants import FRAME_BORDER, MODE_INTER, format_h_shift, \
     format_v_shift
 
 from . import mc

@@ -15,8 +15,8 @@ from functools import lru_cache
 
 import torch
 
-from dsv1_tpu.constants import (FRAME_BORDER, format_h_shift, format_v_shift,
-                                round_pow2, round_shift)
+from ..constants import (FRAME_BORDER, format_h_shift, format_v_shift,
+                         round_pow2, round_shift)
 
 
 @dataclass(frozen=True, eq=False)
@@ -60,7 +60,7 @@ def make_layout(subsamp: int, width: int, height: int,
                        total=base, margin=margin)
 
 
-def alloc_image(layout: FrameLayout, device="cpu"):
+def alloc_image(layout: FrameLayout, device="cuda"):
     """Zeroed flat image (calloc semantics) with guard margins."""
     return torch.zeros(layout.total + 2 * layout.margin, dtype=torch.uint8,
                        device=device)

@@ -13,8 +13,8 @@ tensor code here.
 import numpy as np
 import torch
 
-from dsv1_tpu.constants import (HP_SAD_SZ, MASK_ALL_INTRA, MODE_INTER,
-                                MODE_INTRA, format_h_shift, format_v_shift)
+from ..constants import (HP_SAD_SZ, MASK_ALL_INTRA, MODE_INTER,
+                         MODE_INTRA, format_h_shift, format_v_shift)
 
 from . import hme_kernels as hk
 from .cint import U32

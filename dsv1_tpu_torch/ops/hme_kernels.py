@@ -20,7 +20,7 @@ tensors and launch csrc/hme.cu for CUDA tensors; there is no fallback.
 
 import torch
 
-from dsv1_tpu.constants import FRAME_BORDER
+from ..constants import FRAME_BORDER
 
 from .cint import U32
 from .frame import flat_windows

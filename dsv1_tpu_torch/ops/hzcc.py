@@ -17,8 +17,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from dsv1_tpu.constants import (BLOCK_P, CHROMA_LIMIT, MAXLVL, MINQUANT,
-                                NSUBBAND, QP_I, QP_P, round_shift)
+from ..constants import (BLOCK_P, CHROMA_LIMIT, MAXLVL, MINQUANT,
+                         NSUBBAND, QP_I, QP_P, round_shift)
 
 from .cint import lb2, trunc_div
 from .sbt import get_quant

@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-from dsv1_tpu.constants import MASK_ALL_INTRA
+from ..constants import MASK_ALL_INTRA
 
 from .frame import flat_windows
 

@@ -5,18 +5,23 @@ with truncating 4/5 LL scaling, plus the biorthogonal 4-tap transform
 (B4T) on level 1 of intra frames (sbt.c:90-265). The luma inverse nudges
 LH/HL toward the local LL gradient, bounded by +-hqp (sbt.c:437-574).
 
-As in the JAX package, the decomposition carries the active LL region
-between levels and assembles the quadrant layout once at the end; the
-inverse reads each level's band pieces from the original array. Odd
-dimensions are edge-replicated (forward) and zero-padded (inverse).
-`is_p` is a python bool here: the caller knows each frame's type.
-B4T is defined for even dimensions only, as in the JAX package.
+The forward transform carries the active LL region between levels;
+each Haar level (`haar_fwd_level`) writes its LH/HL/HH bands straight
+into their rectangles of the assembled coefficient array, and the last
+LL goes into the top-left corner. On CUDA tensors that level is the
+kernel csrc/sbt.cu (it replaces the Pallas `kern` of
+tools/bench_haar.py:169); on CPU tensors its plain version
+`_haar_fwd_region`. The inverse reads each level's band pieces from the
+original array. Odd dimensions are edge-replicated (forward) and
+zero-padded (inverse). `is_p` is a python bool here: the caller knows
+each frame's type. B4T is defined for even dimensions only, as in the
+JAX package.
 """
 
 import torch
 import torch.nn.functional as F
 
-from dsv1_tpu.constants import MAXLVL, MINQUANT, QP_I, QP_P, round_shift
+from ..constants import MAXLVL, MINQUANT, QP_I, QP_P, round_shift
 
 from .cint import lb2, round2, round4, round8, tdiv, trunc_div
 
@@ -81,13 +86,6 @@ def _haar_fwd_region(r, scale_ll: bool):
     return LL, LH[:, :fw], HL[:fh, :], HH[:fh, :fw]
 
 
-def _assemble(LL, LH, HL, HH):
-    top = torch.cat([LL, LH], dim=1)
-    if HL.shape[0] == 0:
-        return top
-    return torch.cat([top, torch.cat([HL, HH], dim=1)], dim=0)
-
-
 def _interleave2x2(a00, a01, a10, a11):
     ch, cw = a00.shape
     ev = torch.stack([a00, a01], dim=2).reshape(ch, 2 * cw)
@@ -136,24 +134,55 @@ def _b4t_inv_2d(a):
     return _b4t_inv_rows(_b4t_inv_rows(a).T).T
 
 
+def haar_fwd_level(cur, out, scale_ll: bool):
+    """One forward Haar level of the carried region cur (hs, ws) int32:
+    writes LH (ch, fw), HL (fh, cw) and HH (fh, fw) into their rectangles
+    of the assembled coefficient array `out` (LH at [0, cw), HL at
+    [ch, 0), HH at [ch, cw)) and returns LL (ch, cw), a new tensor. cur
+    must not overlap what this level writes. CUDA tensors launch the
+    kernel csrc/sbt.cu; CPU tensors take the plain `_haar_fwd_region`."""
+    hs, ws = cur.shape
+    ch, cw, fh, fw = (hs + 1) // 2, (ws + 1) // 2, hs // 2, ws // 2
+    if not cur.is_cuda:
+        LL, LH, HL, HH = _haar_fwd_region(cur, scale_ll)
+        out[:ch, cw:cw + fw] = LH
+        out[ch:ch + fh, :cw] = HL
+        out[ch:ch + fh, cw:cw + fw] = HH
+        return LL
+    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
+    for t in (cur, out):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.stride(1) != 1:
+            raise ValueError("haar_fwd_level takes 2-D int32 tensors with "
+                             "contiguous rows")
+    if out.device != cur.device or out.shape[0] < hs or out.shape[1] < ws:
+        raise ValueError("out must hold the region on the same device")
+    ll = torch.empty((ch, cw), dtype=torch.int32, device=cur.device)
+    err = lib().dsv1_haar_fwd(cur.data_ptr(), cur.stride(0), hs, ws,
+                              ll.data_ptr(), out.data_ptr(), out.stride(0),
+                              int(scale_ll), stream_ptr(cur))
+    check(err, "dsv1_haar_fwd")
+    LAUNCHES["haar_fwd"] += 1
+    return ll
+
+
 def fwd_sbt(coefs, is_p: bool):
     """dsv_fwd_sbt (sbt.c:630-651) on centered int32 coefs (H, W)."""
     H, W = coefs.shape
     lvls = nlevels(W, H)
     cur = coefs.to(torch.int32)
-    pieces = [None] * (lvls + 1)
-    for i in range(1, lvls + 1):
-        if i == 1 and not is_p:
-            b = _b4t_fwd_2d(cur)
-            ch, cw = (H + 1) // 2, (W + 1) // 2
-            LL, LH, HL, HH = b[:ch, :cw], b[:ch, cw:], b[ch:, :cw], b[ch:, cw:]
-        else:
-            LL, LH, HL, HH = _haar_fwd_region(cur, scale_ll=i > 1)
-        pieces[i] = (LH, HL, HH)
-        cur = LL
-    for i in range(lvls, 0, -1):
-        cur = _assemble(cur, *pieces[i])
-    return cur.contiguous()
+    first = 1
+    if not is_p and lvls >= 1:
+        # B4T level 1 gives all four bands in place; the next level reads
+        # a copy of its LL, since it overwrites that corner
+        out = _b4t_fwd_2d(cur)
+        cur = out[:(H + 1) // 2, :(W + 1) // 2].clone()
+        first = 2
+    else:
+        out = torch.empty_like(cur)
+    for i in range(first, lvls + 1):
+        cur = haar_fwd_level(cur, out, scale_ll=i > 1)
+    out[:cur.shape[0], :cur.shape[1]] = cur
+    return out
 
 
 def _hqp_for_level(q: int, is_p: bool, i: int) -> int:

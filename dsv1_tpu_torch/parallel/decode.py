@@ -8,7 +8,10 @@ order). Each chain of pictures (an I frame and the P frames that follow
 it) is decoded on the device: one scatter builds the chain's quantized
 grids, then per picture dequantization, inverse subband transforms,
 motion compensation and the residual add, with the reference image
-replaced only by is_ref pictures (dsv_decoder.c:422-456).
+replaced only by is_ref pictures (dsv_decoder.c:422-456). The quant
+is read per picture, so ABR streams (a quant per picture) decode like
+CRF ones. `iter_decode_gops` yields each chain's frames as soon as the
+chain is decoded, one device fetch per chain.
 """
 
 from functools import lru_cache
@@ -16,13 +19,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from dsv1_tpu import bits
-from dsv1_tpu.constants import (MAX_BLOCK_SIZE, MAX_QP_BITS, MIN_BLOCK_SIZE,
-                                PT_EOS, PT_META, div_round, pt_is_pic,
-                                pt_is_ref)
-from dsv1_tpu.models.bitstream import (iter_packets, parse_metadata,
-                                       parse_packet_hdr)
-from dsv1_tpu.models.metadata import Metadata
+from .. import bits
+from ..constants import (MAX_BLOCK_SIZE, MAX_QP_BITS, MIN_BLOCK_SIZE,
+                         PT_EOS, PT_META, div_round, pt_is_pic,
+                         pt_is_ref)
+from ..models.bitstream import (iter_packets, parse_metadata,
+                                parse_packet_hdr)
+from ..models.metadata import Metadata
 
 from ..device import resolve
 from ..models.encoder import coef_geometry
@@ -33,7 +36,7 @@ class GopDecoder:
     """Decodes chains of pictures of one geometry on one device."""
 
     def __init__(self, subsamp: int, w: int, h: int, blk_w: int,
-                 blk_h: int, device="cpu"):
+                 blk_h: int, device="cuda"):
         self.device = resolve(device)
         self.blk_w, self.blk_h = blk_w, blk_h
         self.nbh, self.nbv = div_round(w, blk_w), div_round(h, blk_h)
@@ -107,7 +110,7 @@ class GopDecoder:
 
 @lru_cache(maxsize=8)
 def build_gop_decoder(subsamp: int, w: int, h: int, blk_w: int, blk_h: int,
-                      device: str = "cpu"):
+                      device: str = "cuda"):
     """The chain decoder for one geometry (cached)."""
     return GopDecoder(subsamp, w, h, blk_w, blk_h, device)
 
@@ -169,9 +172,12 @@ def _plan_stream(frames):
     return chains
 
 
-def decode_stream_gops(stream: bytes, device):
-    """Decode a .dsv stream chain by chain on `device`. Returns
-    (metadata, [(fno, [y, u, v]), ...] in stream order)."""
+def iter_decode_gops(stream: bytes, device="cuda", *,
+                     meta_box: dict | None = None):
+    """Decode a .dsv stream chain by chain on `device`, yielding
+    (fno, [y, u, v]) numpy planes in stream order as each chain is
+    decoded. The whole stream is parsed first, so `meta_box["meta"]`
+    (when a dict is given) holds the metadata before the first frame."""
     dev = resolve(device)
     meta = None
     frames = []
@@ -188,14 +194,24 @@ def decode_stream_gops(stream: bytes, device):
             # corrupt or truncated packet: skip it, like the reference's
             # in-stream guards (hzcc.c:337-339, dsv_decoder.c:398-401)
             continue
+    if meta_box is not None:
+        meta_box["meta"] = meta
     if meta is None or not frames:
-        return meta, []
+        return
     chains = _plan_stream(frames)
     dec = build_gop_decoder(meta.subsamp, meta.width, meta.height,
                             frames[0]["blk_w"], frames[0]["blk_h"], str(dev))
-    out = []
     for ch in chains:
         pics = [frames[i] for i in ch]
         for f, planes in zip(pics, dec.decode_chain(pics)):
-            out.append((f["fno"], planes))
-    return meta, out
+            yield f["fno"], planes
+        for i in ch:
+            frames[i] = None   # free the chain's symbols as we go
+
+
+def decode_stream_gops(stream: bytes, device="cuda"):
+    """Decode a .dsv stream chain by chain on `device`. Returns
+    (metadata, [(fno, [y, u, v]), ...] in stream order)."""
+    meta_box = {}
+    frames = list(iter_decode_gops(stream, device, meta_box=meta_box))
+    return meta_box.get("meta"), frames

@@ -21,10 +21,11 @@ class EncoderState:
     refresh_ctr: int          # P frames since the last accumulator reset
     prev_al: int              # previous frame's average luma (SCD)
     ref_recon: torch.Tensor   # (flat,) u8 reference recon image
+    rc: torch.Tensor | None = None   # ABR rate state, int32[8] (ops/rc.py)
 
 
 def state_from_numpy(stability, refresh_ctr, prev_al, ref_recon,
-                     device) -> EncoderState:
+                     device="cuda") -> EncoderState:
     """Device state from numpy arrays / ints: stability (nblk, 2) ints,
     ref_recon the flat extended image (ops/frame.py layout)."""
     dev = resolve(device)

@@ -1,0 +1,63 @@
+"""The golden clips the port is held to, and how their hashes are read.
+
+`dsv1_tpu_torch/data/golden.json` holds, per clip, the SHA-256 of the
+input clip, of the JAX package's stream and of its decode
+(tools/torch_golden.py writes it). Two clips go through
+`encode_stream_gops` at gop 12, qp 85 CRF; the `*_cli` clips go through
+the CLI with its defaults (per-frame ABR, auto bitrate, gop 12).
+"""
+
+import hashlib
+import json
+from pathlib import Path
+
+import numpy as np
+
+from ..constants import SUBSAMP_420
+from . import corpus
+
+GOLDEN = Path(__file__).resolve().parent.parent / "data" / "golden.json"
+SEED = 11
+GOP = 12
+QUALITY_PCT = 85
+
+# name: (width, height, clip generator, frames, CLI encode arguments or
+# None for the encode_stream_gops clips). 4k_cli is one full GOP plus
+# the next GOP's I frame, so the rate state and the stability
+# accumulators carry across a GOP boundary.
+CLIPS = {
+    "cif": (352, 288, "make_clip", 24, None),
+    "1080p": (1920, 1080, "make_rich_clip", 24, None),
+    "cif_cli": (352, 288, "make_clip", 24, ("-w352", "-h288")),
+    "4k_cli": (3840, 2160, "make_rich_clip", 13, ("-w3840", "-h2160")),
+}
+
+
+def load() -> dict:
+    return json.loads(GOLDEN.read_text())
+
+
+def sha(b: bytes) -> str:
+    return hashlib.sha256(b).hexdigest()
+
+
+def clip_frames(name: str):
+    """(raw planar clip bytes, [(y, u, v), ...]) for a golden clip."""
+    w, h, gen, n, _ = CLIPS[name]
+    yuv = getattr(corpus, gen)(w, h, SUBSAMP_420, n, seed=SEED)
+    return yuv, corpus.split_frames(yuv, w, h, SUBSAMP_420, n)
+
+
+def cli_encode_args(name: str, inp, out) -> list:
+    """argv of the CLI encode of a *_cli clip (after the program name)."""
+    return ["e", f"-inp_{inp}", f"-out_{out}", *CLIPS[name][4], "-y"]
+
+
+def cli_decode_args(inp, out) -> list:
+    return ["d", f"-inp_{inp}", f"-out_{out}", "-y"]
+
+
+def decoded_bytes(frames) -> bytes:
+    """Decoded output as raw planar bytes, frames in stream order."""
+    return b"".join(np.asarray(p, np.uint8).tobytes()
+                    for _fno, planes in frames for p in planes)

@@ -1,0 +1,69 @@
+"""PyTorch port vs JAX: the CLI, byte for byte.
+
+The same argv through `dsv1_tpu.cli.main` and
+`dsv1_tpu_torch.cli.main(..., device="cpu")` must write the same .dsv
+and, decoded by each CLI, the same YUV: at the CLI defaults (per-frame
+ABR, auto bitrate, gop 12), with CRF (-rc_mode1), and 4:4:4 input
+decoded with -out420p1. Options the port does not run yet exit with
+code 2."""
+
+import pytest
+import torch
+
+from dsv1_tpu import cli as jcli
+from dsv1_tpu_torch import cli as tcli
+
+from . import corpus
+
+torch.set_num_threads(1)
+
+W, H, N = 96, 80, 14
+
+
+@pytest.mark.parametrize("fmt,extra,dec_extra", [
+    (2, [], []),                     # CLI defaults: ABR, auto bitrate
+    (2, ["-rc_mode1"], []),          # CRF
+    (0, [], ["-out420p1"]),          # 4:4:4 in, 4:2:0 out
+])
+def test_cli_matches_jax(tmp_path, fmt, extra, dec_extra):
+    subsamp = {0: 0x0, 2: 0x5}[fmt]
+    (tmp_path / "in.yuv").write_bytes(
+        corpus.make_clip(W, H, subsamp, N, seed=21))
+    enc = [f"-inp_{tmp_path}/in.yuv", f"-w{W}", f"-h{H}", f"-fmt{fmt}",
+           "-y", *extra]
+    for tag, main in (("jax", jcli.main),
+                      ("port", lambda a: tcli.main(a, device="cpu"))):
+        assert main(["e", *enc, f"-out_{tmp_path}/{tag}.dsv"]) == 0
+        # each CLI decodes the JAX stream
+        assert main(["d", f"-inp_{tmp_path}/jax.dsv",
+                     f"-out_{tmp_path}/{tag}.yuv", "-y", *dec_extra]) == 0
+    stream = (tmp_path / "jax.dsv").read_bytes()
+    assert (tmp_path / "port.dsv").read_bytes() == stream
+    dec = (tmp_path / "jax.yuv").read_bytes()
+    assert len(dec) == N * W * H * 3 // 2
+    assert (tmp_path / "port.yuv").read_bytes() == dec
+
+
+def test_cli_profile_trace(tmp_path):
+    """-prof_DIR writes a torch.profiler trace of the encode there."""
+    (tmp_path / "in.yuv").write_bytes(corpus.make_clip(48, 32, 0x5, 2,
+                                                       seed=3))
+    assert tcli.main(["e", f"-inp_{tmp_path}/in.yuv", "-w48", "-h32",
+                      f"-out_{tmp_path}/s.dsv", f"-prof_{tmp_path}/prof",
+                      "-y"], device="cpu") == 0
+    assert (tmp_path / "s.dsv").stat().st_size > 0
+    assert "gop.recon_chain" in (tmp_path / "prof" / "trace.json") \
+        .read_text()
+
+
+@pytest.mark.parametrize("argv", [
+    ["e", "-gop0"], ["e", "-gop5000"], ["e", "-gopar0"], ["e", "-gopabr1"],
+    ["e", "-effort1"], ["d", "-drawinfo1"],
+])
+def test_cli_not_ported_exits(tmp_path, capsys, argv):
+    (tmp_path / "in.yuv").write_bytes(b"")
+    code = tcli.main([argv[0], f"-inp_{tmp_path}/in.yuv",
+                      f"-out_{tmp_path}/out", *argv[1:]], device="cpu")
+    assert code == tcli.NOT_PORTED
+    assert "not ported yet" in capsys.readouterr().err
+    assert not (tmp_path / "out").exists()

@@ -62,10 +62,12 @@ def test_encode_stream_matches_jax(w, h, subsamp, nframes, gop, cut_at,
 def test_encode_rejects_what_is_not_ported():
     frames = corpus.make_clip_frames(32, 32, SUBSAMP_420, 2, seed=1)
     meta = Metadata(32, 32, SUBSAMP_420)
-    with pytest.raises(NotImplementedError):
-        dt.encode_stream_gops(frames, meta, dt.EncoderConfig(gop=0),
+    for cfg in (dt.EncoderConfig(gop=0), dt.EncoderConfig(gop=4097)):
+        with pytest.raises(NotImplementedError, match="gop 0"):
+            dt.encode_stream_gops(frames, meta, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="effort"):
+        dt.encode_stream_gops(frames, meta, EncoderConfig(gop=2, effort=1),
                               device="cpu")
-    for jcfg in (EncoderConfig(gop=2, rc_mode=1),
-                 EncoderConfig(gop=2, effort=1)):
-        with pytest.raises(NotImplementedError):
-            dt.encode_stream_gops(frames, meta, jcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="abr_mode"):
+        dt.encode_stream_gops(frames, meta, EncoderConfig(gop=2, rc_mode=1),
+                              device="cpu", abr_mode="gop")

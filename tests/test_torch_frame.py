@@ -50,7 +50,7 @@ def test_layout_image_views(subsamp, w, h):
     np.testing.assert_array_equal(
         tfr.image_from_luma(tl, torch.from_numpy(planes[0])).numpy(),
         np.asarray(jfr.image_from_luma(jl, jnp.asarray(planes[0]))))
-    np.testing.assert_array_equal(tfr.alloc_image(tl).numpy(),
+    np.testing.assert_array_equal(tfr.alloc_image(tl, device="cpu").numpy(),
                                   np.asarray(jfr.alloc_image(jl)))
 
 

@@ -1,48 +1,58 @@
 """The golden hashes the port is held to on the GPU (chip_smoke.py).
 
 `dsv1_tpu_torch/data/golden.json` holds the SHA-256 of the JAX package's
-stream and decode of the CIF and 1080p smoke clips (gop 12, qp 85 CRF,
-24 frames), written by tools/torch_golden.py. Here the CIF entry is
-regenerated from JAX on the CPU and checked against the file, and the
-port's CPU encode and decode are checked against it; the 1080p entry is
-checked the same way in the slow tier."""
+stream and decode of the smoke clips, written by tools/torch_golden.py:
+`cif` and `1080p` through `encode_stream_gops` (gop 12, qp 85 CRF, 24
+frames), `cif_cli` and `4k_cli` through the CLI at its defaults
+(per-frame ABR, auto bitrate). Here the CIF entries are regenerated from
+JAX on the CPU and checked against the file, and the port's CPU encode
+and decode (through `encode_stream_gops` or the CLI) are checked against
+it; the 1080p and 4K entries are checked the same way in the slow tier."""
 
-import json
 import os
-from pathlib import Path
 
 import pytest
 import torch
 
 import dsv1_tpu_torch as dt
+from dsv1_tpu_torch import cli
+from dsv1_tpu_torch.utils import golden as g
 from tools import torch_golden as tg
 
 torch.set_num_threads(1)
 
-GOLDEN = Path(dt.__file__).resolve().parent / "data" / "golden.json"
-
-
-def _golden(name):
-    return json.loads(GOLDEN.read_text())[name]
-
 
 def _check_jax(name):
     assert os.environ.get("JAX_PLATFORMS") == "cpu"
-    assert tg.jax_entry(name) == _golden(name)
+    entry = (tg.jax_cli_entry if g.CLIPS[name][4] is not None
+             else tg.jax_entry)(name)
+    assert entry == g.load()[name]
 
 
 def _check_port(name):
-    gold = _golden(name)
-    yuv, frames = tg.clip_frames(name)
-    assert tg.sha(yuv) == gold["clip_sha256"]
+    gold = g.load()[name]
+    yuv, frames = g.clip_frames(name)
+    assert g.sha(yuv) == gold["clip_sha256"]
     meta = dt.Metadata(gold["width"], gold["height"], dt.SUBSAMP_420)
-    cfg = dt.EncoderConfig(quality=dt.quality_percent(tg.QUALITY_PCT),
-                           gop=tg.GOP, stable_refresh=tg.GOP - 1)
+    cfg = dt.EncoderConfig(quality=dt.quality_percent(g.QUALITY_PCT),
+                           gop=g.GOP, stable_refresh=g.GOP - 1)
     stream = dt.encode_stream_gops(frames, meta, cfg, device="cpu")
     assert len(stream) == gold["stream_bytes"]
-    assert tg.sha(stream) == gold["stream_sha256"]
+    assert g.sha(stream) == gold["stream_sha256"]
     _m, dec = dt.decode_stream_gops(stream, device="cpu")
-    assert tg.sha(tg.decoded_bytes(dec)) == gold["decode_sha256"]
+    assert g.sha(g.decoded_bytes(dec)) == gold["decode_sha256"]
+
+
+def _check_port_cli(name, tmp_path):
+    gold = g.load()[name]
+    yuv, _frames = g.clip_frames(name)
+    assert g.sha(yuv) == gold["clip_sha256"]
+    inp, dsv, out = (tmp_path / f for f in ("in.yuv", "s.dsv", "o.yuv"))
+    inp.write_bytes(yuv)
+    assert cli.main(g.cli_encode_args(name, inp, dsv), device="cpu") == 0
+    assert g.sha(dsv.read_bytes()) == gold["stream_sha256"]
+    assert cli.main(g.cli_decode_args(dsv, out), device="cpu") == 0
+    assert g.sha(out.read_bytes()) == gold["decode_sha256"]
 
 
 def test_cif_golden_matches_jax():
@@ -53,6 +63,14 @@ def test_port_cif_matches_golden():
     _check_port("cif")
 
 
+def test_cif_cli_golden_matches_jax():
+    _check_jax("cif_cli")
+
+
+def test_port_cif_cli_matches_golden(tmp_path):
+    _check_port_cli("cif_cli", tmp_path)
+
+
 @pytest.mark.slow
 def test_1080p_golden_matches_jax():
     _check_jax("1080p")
@@ -61,3 +79,8 @@ def test_1080p_golden_matches_jax():
 @pytest.mark.slow
 def test_port_1080p_matches_golden():
     _check_port("1080p")
+
+
+@pytest.mark.slow
+def test_4k_cli_golden_matches_jax():
+    _check_jax("4k_cli")

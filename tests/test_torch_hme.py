@@ -2,8 +2,13 @@
 
 - The plain versions of the port's two HME kernels against the Pallas
   `_refine_kernel` / `_base_kernel` in interpret mode, on random
-  candidate fields (far, invalid and duplicate MVs included). One case
-  of each runs in tier-1, the rest are `slow`.
+  candidate fields (far, invalid and duplicate MVs included). The base
+  kernel is held against both of its Pallas forms: the resident one and
+  the banded one that the JAX package runs on 4K planes (SRC streamed
+  per block row, `_build_base_call_banded`), which the port's single
+  `hme_base` kernel also serves. One case of each runs in tier-1 (the
+  base kernel's in both forms, on a plane with a partial bottom block
+  row), the rest are `slow`.
 - The port's `hme_batch` against the JAX XLA `hme()` on the geometries
   of test_hme.py (partial right column and bottom row included).
 """
@@ -107,14 +112,17 @@ def test_refine_level_plain_matches_pallas(w, h, level, nc, seed):
 
 
 BASE_CASES = [
-    pytest.param(100, 84, 3, 2),
-    pytest.param(96, 80, 4, 11, marks=pytest.mark.slow),
-    pytest.param(96, 88, 5, 5, marks=pytest.mark.slow),
+    pytest.param(100, 84, 3, 2, False),
+    pytest.param(100, 84, 3, 2, True),     # partial bottom and right blocks
+    pytest.param(96, 80, 4, 11, False, marks=pytest.mark.slow),
+    pytest.param(96, 80, 4, 11, True, marks=pytest.mark.slow),
+    pytest.param(96, 88, 5, 5, False, marks=pytest.mark.slow),
+    pytest.param(104, 90, 6, 7, True, marks=pytest.mark.slow),
 ]
 
 
-@pytest.mark.parametrize("w,h,seed,shift", BASE_CASES)
-def test_refine_base_plain_matches_pallas(w, h, seed, shift):
+@pytest.mark.parametrize("w,h,seed,shift,banded", BASE_CASES)
+def test_refine_base_plain_matches_pallas(w, h, seed, shift, banded):
     s2, r2, lay = _planes2d(w, h, 0, [(seed, shift), (seed + 7, 0)])
     p = lay.planes[0]
     nbh = -(-w // BLK)
@@ -122,7 +130,7 @@ def test_refine_base_plain_matches_pallas(w, h, seed, shift):
     cmx, cmy = _cands(np.random.default_rng(seed), 2, nb, 6, w, h)
     want = pallas_hme.refine_base_pallas(
         s2, r2, jnp.asarray(cmx), jnp.asarray(cmy), lay, BLK, BLK, nbh, nb,
-        interpret=True, banded=False)
+        interpret=True, banded=banded)
     got = hk.refine_base(_t(s2), _t(r2), _t(cmx), _t(cmy), p.ext, p.w, p.h,
                          nbh, nb, BLK, BLK)
     for name, g, e in zip(("mvx", "mvy", "flags", "qbits", "luma_tex",

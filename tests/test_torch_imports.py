@@ -1,7 +1,8 @@
-"""The port never imports jax, and never runs on the CPU when CUDA is
-asked for."""
+"""The port never imports jax or the JAX package, runs on the card unless
+asked for the CPU, and never runs on the CPU when CUDA is asked for."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -10,8 +11,10 @@ import pytest
 import torch
 
 import dsv1_tpu_torch as dt
-from dsv1_tpu_torch.device import resolve
+from dsv1_tpu_torch import cli
 from dsv1_tpu_torch.kernels.build import LAUNCHES
+from dsv1_tpu_torch.parallel import (build_gop_decoder, build_gop_encoder,
+                                     iter_decode_gops)
 
 from . import corpus
 
@@ -20,11 +23,13 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 
 SCRIPT = """
-import sys
+import sys, tempfile
+from pathlib import Path
 import numpy as np
 import torch
 torch.set_num_threads(1)
 import dsv1_tpu_torch as dt
+from dsv1_tpu_torch import cli
 w, h = 48, 32
 rng = np.random.default_rng(0)
 frames = [(rng.integers(0, 256, (h, w), dtype=np.uint8),
@@ -36,7 +41,17 @@ s = dt.encode_stream_gops(frames, dt.Metadata(w, h, dt.SUBSAMP_420),
                           device="cpu")
 meta, dec = dt.decode_stream_gops(s, device="cpu")
 assert len(dec) == 3
-assert "jax" not in sys.modules, "the port imported jax"
+with tempfile.TemporaryDirectory() as td:
+    yuv = Path(td) / "in.yuv"
+    yuv.write_bytes(b"".join(p.tobytes() for f in frames for p in f))
+    args = [f"-inp_{yuv}", f"-w{w}", f"-h{h}", "-y"]
+    assert cli.main(["e", *args, f"-out_{td}/s.dsv"], device="cpu") == 0
+    assert cli.main(["d", f"-inp_{td}/s.dsv", f"-out_{td}/o.yuv"],
+                    device="cpu") == 0
+    assert Path(td, "o.yuv").stat().st_size == yuv.stat().st_size
+bad = sorted(m for m in sys.modules if m.startswith(("jax", "dsv1_tpu"))
+             and m.split(".")[0] != "dsv1_tpu_torch")
+assert not bad, bad
 print("OK", len(s))
 """
 
@@ -49,6 +64,21 @@ def test_port_never_imports_jax():
     assert r.stdout.startswith("OK")
 
 
+IMPORT_OF_JAX_PACKAGE = re.compile(
+    r"^\s*(from\s+dsv1_tpu(?!_torch)\b|import\s+dsv1_tpu(?!_torch)\b"
+    r"|from\s+jax\b|import\s+jax\b)", re.M)
+
+
+def test_no_source_imports_the_jax_package():
+    files = sorted((ROOT / "dsv1_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+           for f in files for m in IMPORT_OF_JAX_PACKAGE.finditer(
+               f.read_text())]
+    assert not bad, bad
+
+
 def test_cpu_tensors_take_the_plain_versions():
     frames = corpus.make_clip_frames(48, 32, dt.SUBSAMP_420, 3, seed=2)
     LAUNCHES.clear()
@@ -59,13 +89,31 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_cuda_request_raises_without_cuda():
+    """Without a device every entry point asks for the card, which this
+    machine lacks: each raises instead of falling back to the CPU."""
     if torch.cuda.is_available():
-        pytest.skip("this machine has CUDA: the request is valid here")
+        pytest.skip("this machine has CUDA: the default device is valid")
     frames = corpus.make_clip_frames(48, 32, dt.SUBSAMP_420, 2, seed=2)
+    meta = dt.Metadata(48, 32, dt.SUBSAMP_420)
+    calls = [
+        lambda: dt.encode_stream_gops(frames, meta, dt.EncoderConfig(gop=2)),
+        lambda: dt.decode_stream_gops(b""),
+        lambda: next(iter_decode_gops(b"")),
+        lambda: build_gop_encoder(dt.SUBSAMP_420, 48, 32, 2, 1),
+        lambda: build_gop_decoder(dt.SUBSAMP_420, 48, 32, 16, 16),
+        lambda: dt.encode_stream_gops(frames, meta, dt.EncoderConfig(gop=2),
+                                      device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_cli_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    (tmp_path / "in.yuv").write_bytes(
+        corpus.make_clip(48, 32, dt.SUBSAMP_420, 2, seed=1))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        dt.encode_stream_gops(frames, dt.Metadata(48, 32, dt.SUBSAMP_420),
-                              dt.EncoderConfig(gop=2), device="cuda")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        dt.decode_stream_gops(b"", device="cuda")
-    with pytest.raises(ValueError):
-        resolve(None)
+        cli.main(["e", f"-inp_{tmp_path}/in.yuv", f"-out_{tmp_path}/s.dsv",
+                  "-w48", "-h32", "-y"])

@@ -1,30 +1,30 @@
 """Where the time goes in the port's GPU encode and decode.
 
-Encodes one golden clip (tools/torch_golden.py) with
-`dsv1_tpu_torch.encode_stream_gops` on the GPU under torch.profiler and
-reads the per-GOP layer spans the encoder records (`gop.upload`,
-`gop.motion`, `gop.recon_chain`, `gop.pack`; parallel/gop.py), the
+Encodes one golden clip (dsv1_tpu_torch/utils/golden.py) on the GPU
+under torch.profiler: the CRF clips (`cif`, `1080p`) through
+`dsv1_tpu_torch.encode_stream_gops`, the CLI clips (`cif_cli`, `4k_cli`)
+through `dsv1_tpu_torch.cli.main` with the CLI's defaults (per-frame
+ABR), from and to files. Reads the per-GOP layer spans the encoder
+records (`gop.upload`, `gop.motion`, `gop.recon_chain` with
+`gop.rate_read` inside it under ABR, `gop.pack`; parallel/gop.py), the
 device busy share and the top device kernels; then profiles the decode
 of the stream the same way. The same encode also runs once without the
 profiler, so the profiler's own cost shows. Needs a CUDA device.
 
-    python3 tools/torch_profile.py [--clip cif|1080p] [--out FILE]
+    python3 tools/torch_profile.py [--clip NAME] [--out FILE]
 """
 
 import argparse
 import json
-import os
 import sys
 import time
 from pathlib import Path
 
-# dsv1_tpu/__init__.py imports jax whenever JAX_PLATFORMS is set
-os.environ.pop("JAX_PLATFORMS", None)
-
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SPANS = ("gop.upload", "gop.motion", "gop.recon_chain", "gop.pack")
+SPANS = ("gop.upload", "gop.motion", "gop.recon_chain", "gop.rate_read",
+         "gop.pack")
 
 
 def _sync():
@@ -65,16 +65,22 @@ def profile(fn):
 
 
 def main():
+    from dsv1_tpu_torch.utils.golden import CLIPS
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--clip", choices=("cif", "1080p"), default="1080p")
+    ap.add_argument("--clip", choices=sorted(CLIPS), default="1080p")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args()
     import subprocess
+    import tempfile
 
     import torch
 
     import dsv1_tpu_torch as dt
-    from tools.torch_golden import GOP, QUALITY_PCT, clip_frames
+    from dsv1_tpu_torch import cli
+    from dsv1_tpu_torch.utils.golden import (GOP, QUALITY_PCT,
+                                             cli_decode_args,
+                                             cli_encode_args, clip_frames)
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA device")
@@ -82,22 +88,39 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    _yuv, frames = clip_frames(args.clip)
+    yuv, frames = clip_frames(args.clip)
     h, w = frames[0][0].shape
     meta = dt.Metadata(w, h, dt.SUBSAMP_420)
     cfg = dt.EncoderConfig(quality=dt.quality_percent(QUALITY_PCT), gop=GOP,
                            stable_refresh=GOP - 1)
+    td = Path(tempfile.mkdtemp())
+    inp, dsv, out = td / "in.yuv", td / "s.dsv", td / "o.yuv"
+    inp.write_bytes(yuv)
 
-    def encode():
-        return dt.encode_stream_gops(frames, meta, cfg, device=dev)
+    if CLIPS[args.clip][4] is None:
+        def encode():
+            return dt.encode_stream_gops(frames, meta, cfg, device=dev)
+
+        def decode(stream):
+            return dt.decode_stream_gops(stream, device=dev)
+    else:
+        def encode():
+            assert cli.main(cli_encode_args(args.clip, inp, dsv),
+                            device=dev) == 0
+            return dsv.read_bytes()
+
+        def decode(_stream):
+            assert cli.main(cli_decode_args(dsv, out), device=dev) == 0
 
     stream = encode()   # warm-up
     t0 = _sync()
     encode()
     plain_wall = _sync() - t0
     enc_wall, enc_busy, spans, enc_top = profile(encode)
-    dec_wall, dec_busy, _, dec_top = profile(
-        lambda: dt.decode_stream_gops(stream, device=dev))
+    dec_wall, dec_busy, _, dec_top = profile(lambda: decode(stream))
+    for f in (inp, dsv, out):
+        f.unlink(missing_ok=True)
+    td.rmdir()
     res = {"clip": args.clip, "frames": len(frames), "card": card,
            "encode": {"wall_s": plain_wall, "profiled_wall_s": enc_wall,
                       "spans_s": spans, "device_busy_share": enc_busy,
