@@ -12,14 +12,19 @@ non-zero:
    process per source, all started together.
 3. kernels — each CUDA kernel against its plain PyTorch version on the
    same inputs, at the main path's shapes: on a 1080p GOP (one GOP's 11
-   P-frame pairs; the arguments `hme_batch` itself passes) `hme_refine`,
-   `hme_base`, `mc` and `haar_fwd` (a luma level 1); on a 3840x2160 GOP
-   `hme_base` again (the work of the JAX package's banded 4K kernel) and
-   `haar_fwd`. Equality is exact (tolerance 0: the codec is
-   integer-only). Both are timed with CUDA events after warm-up; each
-   row gets the least time the card could take for the same work
-   (bytes over 3.35 TB/s, integer operations over 132 SMs x 64 INT32
-   lanes x the SM clock, the larger of the two).
+   P-frame pairs; the arguments `hme_batch` itself passes) `hme_refine`
+   and `hme_base`; `mc` (`bmc.compensate_frame`, one call per frame, all
+   three planes) on a P frame's HME field and on a fuzzed field; on a
+   3840x2160 GOP `hme_base` again (the work of the JAX package's banded
+   4K kernel) and `mc` on both fields; `haar_fwd`
+   (`sbt.haar_fwd_pyramid`, one call per plane, every Haar level) on a
+   1080p luma P plane and I plane, a 4K luma P plane and a few odd
+   shapes. Equality is exact (tolerance 0: the codec is integer-only).
+   Both are timed with CUDA events after warm-up, wrappers included;
+   the redesigned `mc` and `haar_fwd` also with torch.profiler's kernel
+   sums (device only). Each row gets the least time the card could take
+   for the same work (bytes over 3.35 TB/s, integer operations over 132
+   SMs x 64 INT32 lanes x the SM clock, the larger of the two).
 4. edges   — small clips with partial blocks, 4:4:4 chroma and per-frame
    ABR, encoded and decoded on the GPU and on the CPU (plain versions):
    the same bytes.
@@ -168,19 +173,43 @@ def work_hme_base(args):
     return nbytes, ops
 
 
-def work_mc(g):
-    """(bytes, ops) of one plane: one source byte per predicted pixel
-    plus the zero-MV window it is averaged from, the output written
-    once, 5 int32 fields per block; about 6 ops per pixel."""
-    px = g.h * g.w
-    return 3 * px + 5 * g.nbh * g.nbv * 4, 6 * px
+def work_mc(planes, nbh, nbv, fields):
+    """(bytes, ops) of one frame's prediction with this field: per inter
+    block the neighbourhood its phase reads (luma 3 more rows for a
+    vertical half-pel, 3 more columns for a horizontal one; chroma one
+    more of each), per intra block its zero-MV window, every pixel
+    written once, 16 B of fields per block. Ops per pixel: 8 for a luma
+    vertical or horizontal half-pel, 30 for the luma diagonal (four
+    horizontal 4-taps and a vertical one), 4 and 6 for chroma, 0 for a
+    full-pel copy, 4 for an intra pixel (sum, quadrant, divide)."""
+    import numpy as np
+
+    from dsv1_tpu_torch.constants import MODE_INTER
+    modes, mvx, mvy, _ = (f.reshape(-1).cpu().numpy().astype(np.int64)
+                          for f in fields)
+    inter = modes == MODE_INTER
+    nbytes, ops = 16 * modes.size, 0
+    for c, g in enumerate(planes):
+        bw_c = np.clip(g.w - np.tile(np.arange(nbh) * g.BW, nbv), 0, g.BW)
+        bh_c = np.clip(g.h - np.repeat(np.arange(nbv) * g.BH, nbh), 0, g.BH)
+        px = bw_c * bh_c
+        xh, yh = (mvx >> g.sh) & 1, (mvy >> g.sv) & 1
+        k = 3 if c == 0 else 1
+        nb = (bh_c + k * yh) * (bw_c + k * xh)
+        nbytes += int(np.where(inter, nb, px).sum() + px.sum())
+        per = np.where(xh & yh, 30 if c == 0 else 6,
+                       np.where(xh | yh, 8 if c == 0 else 4, 0))
+        ops += int((np.where(inter, per, 4) * px).sum())
+    return nbytes, ops
 
 
 def work_haar(hs, ws):
-    """(bytes, ops) of one Haar level: each int32 read once and each
-    band value written once; 8 adds and the LL scale per 2x2 quad, about
-    3 ops per pixel."""
-    return 8 * hs * ws, 3 * hs * ws
+    """(bytes, ops) of a Haar pyramid on a (hs, ws) region: each int32
+    of the region read once, each band value and the last LL written
+    once (as many values as the region has); 8 adds and the LL scale
+    per 2x2 quad, about 3 ops per pixel at the first level and a third
+    more for the levels below it."""
+    return 8 * hs * ws, 4 * hs * ws
 
 
 def row(name, source, replaces, err, ms, plain_ms, work, bound, **extra):
@@ -213,35 +242,90 @@ def gop_motion(dev, frames):
     return enc, imgs, mv, calls
 
 
-def haar_input(dev, hs, ws, seed):
+def device_ms(fn, reps: int) -> float:
+    """Device time of fn() per call: torch.profiler's kernel sums over
+    reps calls (memcpy and memset left out), after one warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not e.key.startswith(("Memcpy", "Memset")))
+    return us * 1e-3 / reps
+
+
+def haar_case(dev, hs, ws, is_p, seed):
+    """The arguments fwd_sbt gives haar_fwd_pyramid for a (hs, ws) plane
+    of random centred coefficients: (region, out, first, lvls); for an
+    I plane out holds the B4T level and the region is a copy of its LL."""
     import numpy as np
     import torch
-    a = np.random.default_rng(seed).integers(-255, 256, (hs, ws))
-    return torch.from_numpy(a.astype(np.int32)).to(dev)
-
-
-def check_haar(dev, hs, ws, seed):
-    """haar_fwd_level on a (hs, ws) level-1 region, kernel vs plain:
-    (max_abs_err, kernel ms, plain ms)."""
-    import torch
     from dsv1_tpu_torch.ops import sbt
-    a = haar_input(dev, hs, ws, seed)
-    out_k = torch.zeros_like(a)
-    out_p = torch.zeros_like(a)
-    ll_k = sbt.haar_fwd_level(a, out_k, False)
+    a = np.random.default_rng(seed).integers(-255, 256, (hs, ws))
+    coefs = torch.from_numpy(a.astype(np.int32)).to(dev)
+    lvls = sbt.nlevels(ws, hs)
+    if is_p:   # out starts as a sentinel no band value can take
+        return coefs, torch.full_like(coefs, -2**31), 1, lvls
+    out = sbt._b4t_fwd_2d(coefs)
+    return out[:(hs + 1) // 2, :(ws + 1) // 2].clone(), out, 2, lvls
 
-    def plain(out):
-        LL, LH, HL, HH = sbt._haar_fwd_region(a, False)
-        ch, cw = LL.shape
-        out[:ch, cw:] = LH
-        out[ch:, :cw] = HL
-        out[ch:, cw:] = HH
-        return LL
 
-    ll_p = plain(out_p)
-    err = max_abs_err((ll_k, out_k), (ll_p, out_p))
-    return (err, cuda_ms(lambda: sbt.haar_fwd_level(a, out_k, False), 50),
-            cuda_ms(lambda: plain(out_p), 10))
+def check_haar(dev, hs, ws, is_p, seed, timed=True):
+    """haar_fwd_pyramid on one plane, kernel vs plain: (max_abs_err,
+    kernel ms, plain ms, kernel device ms, (bytes, ops))."""
+    from dsv1_tpu_torch.ops import sbt
+    cur, out, first, lvls = haar_case(dev, hs, ws, is_p, seed)
+    out_k, out_p = out.clone(), out.clone()
+    sbt.haar_fwd_pyramid(cur, out_k, first, lvls)
+    sbt._haar_fwd_pyramid_plain(cur, out_p, first, lvls)
+    err = max_abs_err(out_k, out_p)
+    if not timed:
+        return err, None, None, None, None
+    kern = lambda: sbt.haar_fwd_pyramid(cur, out_k, first, lvls)  # noqa
+    return (err, cuda_ms(kern, 50),
+            cuda_ms(lambda: sbt._haar_fwd_pyramid_plain(cur, out_p, first,
+                                                        lvls), 5),
+            device_ms(kern, 50), work_haar(*cur.shape))
+
+
+def check_mc(dev, enc, imgs, mv, seed):
+    """compensate_frame on the P frame with the most intra blocks, with
+    its HME field and with a fuzzed one (random modes and submasks, MVs
+    far past the plane edges), kernel vs plain: (max_abs_err, kernel ms,
+    plain ms, kernel device ms, (bytes, ops), intra blocks), the times
+    and work on the HME field."""
+    import torch
+
+    from dsv1_tpu_torch.ops import bmc, mc
+    H, W, nbh, nbv = enc.h, enc.w, enc.nbh, enc.nbv
+    k = int(mv["nintra"].argmax())
+    gen = torch.Generator().manual_seed(seed)
+
+    def fuzz(hi, lo=0):
+        return torch.randint(lo, hi, (nbv * nbh,), generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    fields = [tuple(mv[key][k] for key in ("mode", "mvx", "mvy",
+                                           "submask")),
+              (fuzz(2), fuzz(4 * W, -4 * W), fuzz(4 * H, -4 * H), fuzz(16))]
+    img, geo = imgs[0][k], (enc.layouts[0], enc.blk_w, enc.blk_h, nbh, nbv)
+    err = max(max_abs_err(mc.predict_frame(img, *geo, *f),
+                          mc.predict_frame_plain(img, *geo, *f))
+              for f in fields)
+    f = fields[0]
+    kern = lambda: bmc.compensate_frame(img, *geo, *f)  # noqa: E731
+    planes, _ = mc.frame_geometry(*geo[:3])
+    return (err, cuda_ms(kern, 50),
+            cuda_ms(lambda: mc.predict_frame_plain(img, *geo, *f), 5),
+            device_ms(kern, 50), work_mc(planes, nbh, nbv, f),
+            int(mv["nintra"][k]))
 
 
 def phase_kernels(dev, bound, clips):
@@ -249,7 +333,7 @@ def phase_kernels(dev, bound, clips):
     shapes, on the arguments the main path itself passes to the kernel."""
     import torch
 
-    from dsv1_tpu_torch.ops import bmc, hme_kernels as hk, mc
+    from dsv1_tpu_torch.ops import hme_kernels as hk
 
     _yuv, frames = clips["1080p"]
     enc, imgs, mv, calls = gop_motion(dev, frames)
@@ -281,41 +365,14 @@ def phase_kernels(dev, bound, clips):
                     work_hme_base(bargs), bound,
                     shape=f"1080p B={B} nb={nbh * nbv} {bw}x{bh}"))
 
-    # --- MC on every plane of the P frame with the most intra blocks,
-    # with its HME field; then the same shapes under a fuzzed field
-    # (random modes and submasks, MVs far past the plane edges)
-    lay = enc.layouts[0]
-    k = int(mv["nintra"].argmax())
-    gen = torch.Generator().manual_seed(11)
-
-    def fuzz(hi, lo=0):
-        return torch.randint(lo, hi, (nbv, nbh), generator=gen,
-                             dtype=torch.int32).to(dev)
-
-    fields = [(mv["mode"][k], mv["mvx"][k], mv["mvy"][k], mv["submask"][k]),
-              (fuzz(2), fuzz(4 * W, -4 * W), fuzz(4 * H, -4 * H), fuzz(16))]
-    err, ms, plain_ms, nbytes, ops = 0, 0.0, 0.0, 0, 0
-    for fi, (mode, mvx, mvy, sub) in enumerate(fields):
-        for c in range(3):
-            margs = bmc.mc_args(imgs[0][k], lay, c, bw, bh, nbh, nbv, mode,
-                                mvx, mvy, sub)
-            err = max(err, max_abs_err(mc.predict(*margs),
-                                       mc.predict_plain(*margs)))
-            if fi == 0:
-                ms += cuda_ms(lambda: mc.predict(*margs), 50)
-                plain_ms += cuda_ms(lambda: mc.predict_plain(*margs), 5)
-                x, y = work_mc(margs[1])
-                nbytes, ops = nbytes + x, ops + y
-    rows.append(row("mc", "dsv1_tpu_torch/csrc/mc.cu",
-                    "dsv1_tpu/ops/pallas_mc.py:38", err, ms, plain_ms,
-                    (nbytes, ops), bound, shape="one 1080p frame, 3 planes",
-                    intra_blocks=int(mv["nintra"][k])))
+    # --- MC, one call per frame: 1080p here, 4K below
+    mc_1080 = check_mc(dev, enc, imgs, mv, 11)
     del imgs, mv, calls, lvl_args, bargs
 
     # --- the 4K GOP: level 0 is what the JAX package runs as its banded
     # kernel there (planes past MAX_PLANE_BYTES); the port's one kernel
     _yuv, frames4 = clips["4k_cli"]
-    enc4, _imgs4, _mv4, calls4 = gop_motion(dev, frames4)
+    enc4, imgs4, mv4, calls4 = gop_motion(dev, frames4)
     H4, W4 = frames4[0][0].shape
     (bargs4,) = [a for name, a in calls4 if name == "hme_base"]
     B4 = bargs4[0].shape[0]
@@ -327,17 +384,38 @@ def phase_kernels(dev, bound, clips):
                     work_hme_base(bargs4), bound,
                     shape=f"4K B={B4} nb={enc4.nbh * enc4.nbv} "
                           f"{enc4.blk_w}x{enc4.blk_h}"))
-    del _imgs4, _mv4, calls4, bargs4
+    mc_4k = check_mc(dev, enc4, imgs4, mv4, 12)
+    del imgs4, mv4, calls4, bargs4
+    err, ms, plain_ms, dev_ms, work, nintra = mc_1080
+    err4, ms4, plain_ms4, dev_ms4, work4, nintra4 = mc_4k
+    rows.append(row("mc", "dsv1_tpu_torch/csrc/mc.cu",
+                    "dsv1_tpu/ops/pallas_mc.py:38", max(err, err4), ms,
+                    plain_ms, work, bound,
+                    shape="one 1080p frame, 3 planes (HME field); *_4k: "
+                          "one 3840x2160 frame; errors also on a fuzzed "
+                          "field", device_ms=dev_ms, intra_blocks=nintra,
+                    ms_4k=ms4, plain_ms_4k=plain_ms4, device_ms_4k=dev_ms4,
+                    bound_ms_4k=bound(*work4)[0], intra_blocks_4k=nintra4))
 
-    # --- one Haar level at the 1080p and 4K luma level-1 shapes
-    err, ms, plain_ms = check_haar(dev, H, W, 1)
-    err4, ms4, plain_ms4 = check_haar(dev, H4, W4, 2)
+    # --- the Haar pyramid of one plane: 1080p luma P and I, 4K luma P,
+    # and odd shapes past 6 levels (errors only)
+    err_p, ms, plain_ms, dev_ms, work = check_haar(dev, H, W, True, 1)
+    err_i, ms_i, plain_ms_i, dev_ms_i, work_i = check_haar(dev, H, W,
+                                                           False, 2)
+    err4, ms4, plain_ms4, dev_ms4, work4 = check_haar(dev, H4, W4, True, 3)
+    err_odd = max(check_haar(dev, h, w, p, 4, timed=False)[0]
+                  for h, w, p in ((130, 200, True), (70, 130, False),
+                                  (300, 1, True), (1, 300, True),
+                                  (84, 100, True), (540, 960, False)))
     rows.append(row("haar_fwd", "dsv1_tpu_torch/csrc/sbt.cu",
-                    "tools/bench_haar.py:169", max(err, err4), ms, plain_ms,
-                    work_haar(H, W), bound,
-                    shape=f"luma level 1 {H}x{W}; *_4k: {H4}x{W4}",
-                    ms_4k=ms4, plain_ms_4k=plain_ms4,
-                    bound_ms_4k=bound(*work_haar(H4, W4))[0]))
+                    "tools/bench_haar.py:169",
+                    max(err_p, err_i, err4, err_odd), ms, plain_ms, work,
+                    bound, shape=f"luma P pyramid {H}x{W} (levels 1..); "
+                                 f"*_i: I, levels 2..; *_4k: {H4}x{W4} P",
+                    device_ms=dev_ms, ms_i=ms_i, plain_ms_i=plain_ms_i,
+                    device_ms_i=dev_ms_i, bound_ms_i=bound(*work_i)[0],
+                    ms_4k=ms4, plain_ms_4k=plain_ms4, device_ms_4k=dev_ms4,
+                    bound_ms_4k=bound(*work4)[0]))
     torch.cuda.empty_cache()
     for r in rows:
         emit({"phase": "kernels", **r})

@@ -85,15 +85,14 @@ def lib():
     if _lib is None:
         L = ctypes.CDLL(str(build()))
         P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        L.dsv1_mc_predict.argtypes = [P, I64, I64, I, I, I, I, I, I, I, I,
-                                      I, P, P, P, P, P, P, P]
+        L.dsv1_mc_frame.argtypes = [P, I64, P, I, I, P, P, P, P, P, P]
         L.dsv1_hme_refine.argtypes = [P, P, P, I64, I, I, I, I, I, I, I, I,
                                       I, I, I, I, P, P, P, P]
         L.dsv1_hme_base.argtypes = [P, P, P, I64, I, I, I, I, I, I, I, I,
                                     I, I, I, P, P, P, P, P, P, P]
-        L.dsv1_haar_fwd.argtypes = [P, I64, I, I, P, P, I64, I, P]
-        for fn in (L.dsv1_mc_predict, L.dsv1_hme_refine, L.dsv1_hme_base,
-                   L.dsv1_haar_fwd):
+        L.dsv1_haar_pyramid.argtypes = [P, I64, I, I, I, I, P, I64, P, P]
+        for fn in (L.dsv1_mc_frame, L.dsv1_hme_refine, L.dsv1_hme_base,
+                   L.dsv1_haar_pyramid):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

@@ -123,15 +123,16 @@ def make_encode_core_traced(subsamp: int, w: int, h: int, blk_w: int,
     def f(input_img, ref_recon_img, is_p: bool, quant: int, stable_blocks,
           modes, mvx, mvy, submask):
         qvals, dcs, recon_planes = [], [], []
+        if is_p:
+            preds = bmc.compensate_frame(ref_recon_img, layout, blk_w, blk_h,
+                                         nbh, nbv, modes, mvx, mvy, submask)
         for c in range(3):
             p = layout.planes[c]
             cw, ch = coef_dims[c]
             src_ext = fr.plane_view_ext(input_img, layout, c, cw - p.w)
             src_core = src_ext[:p.h, :p.w]
             if is_p:
-                pred = bmc.compensate_plane(ref_recon_img, layout, c, blk_w,
-                                            blk_h, nbh, nbv, modes, mvx, mvy,
-                                            submask)
+                pred = preds[c]
                 core = bmc.sub_residual(src_core, pred)
             else:
                 core = src_core

@@ -1,32 +1,45 @@
-"""Motion-compensated prediction build: CUDA kernel + plain PyTorch version.
+"""Motion-compensated prediction of a frame: CUDA kernel + plain version.
 
-Replaces the Pallas kernel `_mc_kernel` (dsv1_tpu/ops/pallas_mc.py:38).
-For each motion block: the BH x BW inter window from one of the four
-half-pel variant planes at a clamped origin, or an intra fill from the
-zero-MV window (full-block DC when submask is 15, else a quadrant DC per
-set bit, 0 outside the sub-area, else the zero-MV pixel), selected by
-mode (reference compensate, bmc.c:204-302). The variant planes are
-computed outside (ops/bmc.py), in flat image space.
+Replaces the Pallas kernel `_mc_kernel` (dsv1_tpu/ops/pallas_mc.py:38)
+and the whole-image half-pel variant build that feeds it in the JAX
+package (dsv1_tpu/ops/bmc.py hpel_variants_*). For each motion block of
+each plane (reference compensate, bmc.c:204-302): the clamped window
+origin and half-pel phase from the block's raw MV, then either the BH x
+BW inter window filtered for that phase (luma 4-tap, chroma bilinear)
+or an intra fill from the zero-MV window (full-block DC when submask is
+15, else a quadrant DC per set bit, 0 outside the sub-area, else the
+zero-MV pixel), selected by mode.
 
-The wrapper `predict` takes the plain version for CPU tensors and
-launches the kernel (csrc/mc.cu) for CUDA tensors; there is no fallback.
+The filters are the JAX package's whole-image flat-index filters,
+evaluated only on each block's neighbourhood: a tap is a flat index
+into the whole image of all planes (it crosses row and plane edges as
+the reference's single allocation does), 0 outside [0, n), and the
+luma diagonal's horizontal intermediate is itself 0 outside [0, n).
+
+`predict_frame` takes the plain version for CPU tensors and launches
+the kernel (csrc/mc.cu, one launch for the three planes) for CUDA
+tensors; there is no fallback.
 """
 
+import ctypes
 from dataclasses import dataclass
+from functools import lru_cache
 
 import torch
 
-from ..constants import MASK_ALL_INTRA
+from ..constants import (FRAME_BORDER, MASK_ALL_INTRA, MAX_BLOCK_SIZE,
+                         MODE_INTER, format_h_shift, format_v_shift)
 
-from .frame import flat_windows
+from .frame import FrameLayout, flat_base, flat_windows
 
 
 @dataclass(frozen=True)
-class MCGeom:
-    """Where plane c's extended (EH, S) region sits in each flat variant,
-    and the block grid that tiles the (h, w) plane."""
-    n: int       # flat length of one variant (stride between variants)
+class MCPlane:
+    """Plane c's extended (EH, S) region in the flat image, its (h, w)
+    prediction's offset in the frame's output, its block size and chroma
+    shifts."""
     start: int   # flat index of the extended plane's (0, 0)
+    out_off: int
     EH: int
     S: int
     E: int       # border
@@ -34,119 +47,161 @@ class MCGeom:
     h: int
     BW: int
     BH: int
-    nbh: int
-    nbv: int
+    sh: int
+    sv: int
 
 
-def predict_plain(vflat, g: MCGeom, inter, submask, ir, ic, phase):
-    """Dense PyTorch form (the XLA compensate_plane, dsv1_tpu/ops/bmc.py
-    :182-238). vflat: (4n,) u8 variants; inter/submask/ir/ic/phase:
-    (nbv, nbh) int32 per-block fields — inter 1 for inter blocks, ir/ic
-    the window origins in extended-plane coords. Returns (h, w) u8."""
-    dev = vflat.device
-    nbv, nbh, BH, BW, S, E = g.nbv, g.nbh, g.BH, g.BW, g.S, g.E
-    ph, pw = g.h, g.w
-    base = (phase.to(torch.int64) * g.n + g.start
-            + ir.to(torch.int64) * S + ic)
-    spans = flat_windows(vflat, base, BH, BW, S)        # (nbv, nbh, BH, BW)
-    inter_val = spans.permute(0, 2, 1, 3).reshape(nbv * BH, nbh * BW) \
-        [:ph, :pw].to(torch.int32)
-
-    ref_plane = vflat[g.start:g.start + g.EH * S].reshape(g.EH, S) \
-        [E:E + ph, E:E + pw]
-    avg_full, avg_sub = _block_avgs(ref_plane, nbh, nbv, BW, BH)
-
-    def up(blk2d):
-        return blk2d.repeat_interleave(BH, 0).repeat_interleave(BW, 1) \
-            [:ph, :pw]
-
-    cw2 = (pw - torch.arange(nbh, device=dev) * BW).clamp(0, BW)
-    ch2 = (ph - torch.arange(nbv, device=dev) * BH).clamp(0, BH)
-    sbw_px = up((cw2 // 2)[None, :].expand(nbv, nbh))
-    sbh_px = up((ch2 // 2)[:, None].expand(nbv, nbh))
-    sub_px = up(submask.to(torch.int32))
-    lx = (torch.arange(pw, device=dev) % BW)[None, :]
-    ly = (torch.arange(ph, device=dev) % BH)[:, None]
-    qx = (lx >= sbw_px).to(torch.int32)
-    qy = (ly >= sbh_px).to(torch.int32)
-    in_sub = (lx < 2 * sbw_px) & (ly < 2 * sbh_px) & (sbw_px > 0) \
-        & (sbh_px > 0)
-    mask_bit = (sub_px >> (qy * 2 + qx)) & 1
-    quad_avg = torch.where(
-        qy == 0,
-        torch.where(qx == 0, up(avg_sub[:, :, 0, 0]), up(avg_sub[:, :, 0, 1])),
-        torch.where(qx == 0, up(avg_sub[:, :, 1, 0]), up(avg_sub[:, :, 1, 1])))
-    intra_val = torch.where(
-        sub_px == MASK_ALL_INTRA, up(avg_full),
-        torch.where(~in_sub, 0,
-                    torch.where(mask_bit == 1, quad_avg,
-                                ref_plane.to(torch.int32))))
-    pred = torch.where(up(inter.to(torch.int32)) == 1, inter_val, intra_val)
-    return pred.to(torch.uint8)
+@lru_cache(maxsize=32)
+def frame_geometry(layout: FrameLayout, blk_w: int, blk_h: int):
+    """The three planes' MCPlane and the frame's output size."""
+    if not 0 < blk_w <= MAX_BLOCK_SIZE or not 0 < blk_h <= MAX_BLOCK_SIZE:
+        raise ValueError("block size out of range")
+    planes, off = [], 0
+    for c in range(3):
+        p = layout.planes[c]
+        sh = 0 if c == 0 else format_h_shift(layout.subsamp)
+        sv = 0 if c == 0 else format_v_shift(layout.subsamp)
+        planes.append(MCPlane(
+            start=flat_base(layout, c) - p.ext * p.stride - p.ext,
+            out_off=off, EH=p.h + 2 * p.ext, S=p.stride, E=p.ext, w=p.w,
+            h=p.h, BW=blk_w >> sh, BH=blk_h >> sv, sh=sh, sv=sv))
+        off += p.h * p.w
+    return tuple(planes), off
 
 
-def _block_avgs(ref_plane, nbh: int, nbv: int, bw: int, bh: int):
-    """Whole-block and quadrant DC averages over clipped block dims, by
-    an integral image (bmc.c:176-189; the JAX twin's u32 box sums are
-    exact, as are these int64 ones)."""
-    dev = ref_plane.device
-    ph, pw = ref_plane.shape
-    ii = torch.zeros((ph + 1, pw + 1), dtype=torch.int64, device=dev)
-    ii[1:, 1:] = ref_plane.to(torch.int64).cumsum(0).cumsum(1)
-    bj = torch.arange(nbv, device=dev)[:, None].expand(nbv, nbh)
-    bi = torch.arange(nbh, device=dev)[None, :].expand(nbv, nbh)
-    x0, y0 = bi * bw, bj * bh
-    cw = (pw - x0).clamp(0, bw)
-    ch = (ph - y0).clamp(0, bh)
+@lru_cache(maxsize=32)
+def _geo_array(layout: FrameLayout, blk_w: int, blk_h: int):
+    """The kernel's host geometry array (csrc/mc.cu dsv1_mc_frame)."""
+    planes, _ = frame_geometry(layout, blk_w, blk_h)
+    vals = [v for g in planes for v in (g.start, g.out_off, g.EH, g.S, g.E,
+                                        g.w, g.h, g.BW, g.BH, g.sh, g.sv)]
+    return (ctypes.c_int64 * 35)(*vals, FRAME_BORDER, MODE_INTER)
 
-    def boxsum(ya, xa, yb, xb):
-        ya, yb = ya.clamp(0, ph), yb.clamp(0, ph)
-        xa, xb = xa.clamp(0, pw), xb.clamp(0, pw)
-        return ii[yb, xb] - ii[ya, xb] - ii[yb, xa] + ii[ya, xa]
 
-    area = (cw * ch).clamp(min=1)
-    avg_full = (boxsum(y0, x0, y0 + ch, x0 + cw) // area).to(torch.int32)
-    sbw, sbh = cw // 2, ch // 2
+def _plane_plain(img, g: MCPlane, luma: bool, nbh: int, nbv: int, modes,
+                 mvx, mvy, sub):
+    """One plane's (h, w) u8 prediction, per block as the kernel does it:
+    gather the flat neighbourhood with the same zero rules, filter it
+    for the block's phase, fill intra blocks, select."""
+    dev, n = img.device, img.shape[-1]
+    BW, BH, S = g.BW, g.BH, g.S
+    nblk = nbh * nbv
+    bx = (torch.arange(nbh, device=dev) * BW).repeat(nbv)
+    by = (torch.arange(nbv, device=dev) * BH).repeat_interleave(nbh)
+    bw_c = (g.w - bx).clamp(0, BW)[:, None, None]
+    bh_c = (g.h - by).clamp(0, BH)[:, None, None]
+
+    # inter: origin and phase from the raw MV, then the neighbourhood,
+    # 0 outside [0, n): luma rows -1..BH+1 x flat span -1..BW+1, chroma
+    # rows 0..BH x span 0..BW
+    dx2, dy2 = mvx >> g.sh, mvy >> g.sv
+    px = torch.clamp(bx + (dx2 >> 1), -FRAME_BORDER,
+                     g.w - BW + FRAME_BORDER - 1)
+    py = torch.clamp(by + (dy2 >> 1), -FRAME_BORDER,
+                     g.h - BH + FRAME_BORDER - 1)
+    phase = ((dx2 & 1) << 1) | (dy2 & 1)
+    j0 = (g.start + (py + g.E).clamp(0, g.EH - BH).to(torch.int64) * S
+          + (px + g.E).clamp(0, S - BW))
+    lo, hi = (1, 2) if luma else (0, 1)
+    rows = torch.arange(-lo, BH + hi, device=dev)
+    cols = torch.arange(-lo, BW + hi, device=dev)
+    j = j0[:, None, None] + rows[None, :, None] * S + cols[None, None, :]
+    inside = (j >= 0) & (j < n)
+    a = torch.where(inside, img[j.clamp(0, n - 1)].to(torch.int32), 0)
+
+    def A(dr, dq):
+        return a[:, lo + dr:lo + dr + BH, lo + dq:lo + dq + BW]
+
+    if luma:
+        v = ((9 * (A(0, 0) + A(1, 0)) - (A(-1, 0) + A(2, 0)) + 8) >> 4) \
+            .clamp(0, 255)
+        h = ((9 * (A(0, 0) + A(0, 1)) - (A(0, -1) + A(0, 2)) + 8) >> 4) \
+            .clamp(0, 255)
+        hu = 9 * (a[:, :, 1:1 + BW] + a[:, :, 2:2 + BW]) \
+            - (a[:, :, 0:BW] + a[:, :, 3:3 + BW])
+        hu = torch.where(inside[:, :, 1:1 + BW], hu, 0)
+
+        def HU(dr):
+            return hu[:, 1 + dr:1 + dr + BH]
+
+        d = ((9 * (HU(0) + HU(1)) - (HU(-1) + HU(2)) + 128) >> 8) \
+            .clamp(0, 255)
+        variants = (A(0, 0), v, h, d)
+    else:
+        variants = (A(0, 0), (A(0, 0) + A(1, 0) + 1) >> 1,
+                    (A(0, 0) + A(0, 1) + 1) >> 1,
+                    (A(0, 0) + A(0, 1) + A(1, 0) + A(1, 1) + 2) >> 2)
+    inter_val = torch.stack(variants)[phase.to(torch.int64),
+                                      torch.arange(nblk, device=dev)]
+
+    # intra: sums over the zero-MV window at the kernel's clamped origin
+    zr = (g.E + by).clamp(0, (g.EH - BH) & ~7)
+    zc = (g.E + bx).clamp(0, S - BW)
+    z = flat_windows(img, g.start + zr * S + zc, BH, BW, S).to(torch.int32)
+    r = torch.arange(BH, device=dev)[None, :, None]
+    q = torch.arange(BW, device=dev)[None, None, :]
+    inb = (r < bh_c) & (q < bw_c)
+    sbw, sbh = bw_c // 2, bh_c // 2
+    qx, qy = (q >= sbw).to(torch.int32), (r >= sbh).to(torch.int32)
+    in_quad = (q - qx * sbw < sbw) & (r - qy * sbh < sbh)
+    qi = qy * 2 + qx
+    avg_full = (z * inb).sum((1, 2), keepdim=True) \
+        // (bw_c * bh_c).clamp(min=1)
     sarea = (sbw * sbh).clamp(min=1)
-    rows = []
-    for qy in (0, 1):
-        row = []
-        for qx in (0, 1):
-            sx0, sy0 = x0 + qx * sbw, y0 + qy * sbh
-            row.append((boxsum(sy0, sx0, sy0 + sbh, sx0 + sbw) // sarea)
-                       .to(torch.int32))
-        rows.append(torch.stack(row, -1))
-    return avg_full, torch.stack(rows, -2)   # [nbv, nbh], [nbv, nbh, qy, qx]
+    quad_avg = torch.zeros_like(z)
+    for k in range(4):
+        m = inb & in_quad & (qi == k)
+        quad_avg = torch.where(qi == k, (z * m).sum((1, 2), keepdim=True)
+                               // sarea, quad_avg)
+    sb = sub[:, None, None]
+    in_sub = in_quad & (sbw > 0) & (sbh > 0)
+    intra_val = torch.where(
+        sb == MASK_ALL_INTRA, avg_full,
+        torch.where(~in_sub, 0,
+                    torch.where(((sb >> qi) & 1) == 1, quad_avg, z)))
+    pred = torch.where((modes == MODE_INTER)[:, None, None], inter_val,
+                       intra_val).to(torch.uint8)
+    return pred.reshape(nbv, nbh, BH, BW).permute(0, 2, 1, 3) \
+        .reshape(nbv * BH, nbh * BW)[:g.h, :g.w]
 
 
-def predict(vflat, g: MCGeom, inter, submask, ir, ic, phase):
-    """Prediction plane (h, w) u8: plain version on CPU tensors, the CUDA
-    kernel on CUDA tensors."""
-    if not vflat.is_cuda:
-        return predict_plain(vflat, g, inter, submask, ir, ic, phase)
-    return predict_cuda(vflat, g, inter, submask, ir, ic, phase)
+def predict_frame_plain(img, layout: FrameLayout, blk_w: int, blk_h: int,
+                        nbh: int, nbv: int, modes, mvx, mvy, submask):
+    """The plain version of predict_frame."""
+    planes, size = frame_geometry(layout, blk_w, blk_h)
+    f = [x.reshape(-1).to(torch.int32) for x in (modes, mvx, mvy, submask)]
+    out = torch.empty(size, dtype=torch.uint8, device=img.device)
+    for c, g in enumerate(planes):
+        out[g.out_off:g.out_off + g.h * g.w] = _plane_plain(
+            img, g, c == 0, nbh, nbv, *f).reshape(-1)
+    return out
 
 
-def predict_cuda(vflat, g: MCGeom, inter, submask, ir, ic, phase):
-    """Launch csrc/mc.cu dsv1_mc_predict: one thread block per motion
-    block."""
+def predict_frame(img, layout: FrameLayout, blk_w: int, blk_h: int,
+                  nbh: int, nbv: int, modes, mvx, mvy, submask):
+    """The three planes' predictions back to back, (sum of h * w,) u8,
+    from the flat extended reference image and the per-block mode, MV
+    and submask fields (nbv * nbh each): the plain version on CPU
+    tensors, one launch of csrc/mc.cu on CUDA tensors."""
+    if not img.is_cuda:
+        return predict_frame_plain(img, layout, blk_w, blk_h, nbh, nbv,
+                                   modes, mvx, mvy, submask)
     from ..kernels.build import LAUNCHES, check, lib, stream_ptr
-    if vflat.dtype != torch.uint8 or not vflat.is_contiguous():
-        raise ValueError("vflat must be a contiguous uint8 tensor")
-    if vflat.numel() != 4 * g.n:
-        raise ValueError("vflat must hold 4 variants of length n")
-    dev = vflat.device
+    if img.dtype != torch.uint8 or img.dim() != 1 \
+            or not img.is_contiguous():
+        raise ValueError("img must be a contiguous 1-D uint8 tensor")
+    _, size = frame_geometry(layout, blk_w, blk_h)
+    dev = img.device
     f = [x.to(device=dev, dtype=torch.int32).contiguous().reshape(-1)
-         for x in (inter, submask, ir, ic, phase)]
-    for x in f:
-        if x.numel() != g.nbh * g.nbv:
-            raise ValueError("per-block field has the wrong size")
-    out = torch.empty((g.h, g.w), dtype=torch.uint8, device=dev)
-    err = lib().dsv1_mc_predict(
-        vflat.data_ptr(), g.n, g.start, g.EH, g.S, g.E, g.w, g.h, g.BW,
-        g.BH, g.nbh, g.nbv, f[0].data_ptr(), f[1].data_ptr(),
-        f[2].data_ptr(), f[3].data_ptr(), f[4].data_ptr(), out.data_ptr(),
-        stream_ptr(vflat))
-    check(err, "dsv1_mc_predict")
+         for x in (modes, mvx, mvy, submask)]
+    if any(x.numel() != nbh * nbv for x in f):
+        raise ValueError("per-block field has the wrong size")
+    out = torch.empty(size, dtype=torch.uint8, device=dev)
+    err = lib().dsv1_mc_frame(img.data_ptr(), img.shape[0],
+                              _geo_array(layout, blk_w, blk_h), nbh, nbv,
+                              f[0].data_ptr(), f[1].data_ptr(),
+                              f[2].data_ptr(), f[3].data_ptr(),
+                              out.data_ptr(), stream_ptr(img))
+    check(err, "dsv1_mc_frame")
     LAUNCHES["mc"] += 1
     return out

@@ -6,14 +6,14 @@ with truncating 4/5 LL scaling, plus the biorthogonal 4-tap transform
 LH/HL toward the local LL gradient, bounded by +-hqp (sbt.c:437-574).
 
 The forward transform carries the active LL region between levels;
-each Haar level (`haar_fwd_level`) writes its LH/HL/HH bands straight
-into their rectangles of the assembled coefficient array, and the last
-LL goes into the top-left corner. On CUDA tensors that level is the
-kernel csrc/sbt.cu (it replaces the Pallas `kern` of
-tools/bench_haar.py:169); on CPU tensors its plain version
-`_haar_fwd_region`. The inverse reads each level's band pieces from the
-original array. Odd dimensions are edge-replicated (forward) and
-zero-padded (inverse). `is_p` is a python bool here: the caller knows
+each Haar level writes its LH/HL/HH bands straight into their
+rectangles of the assembled coefficient array, and the last LL goes
+into the top-left corner. `haar_fwd_pyramid` runs all the Haar levels of
+a plane: on CUDA tensors in one C call of the kernels csrc/sbt.cu (they
+replace the Pallas `kern` of tools/bench_haar.py:169), on CPU tensors
+by its plain version, a loop of `_haar_fwd_region`. The inverse reads
+each level's band pieces from the original array. Odd dimensions are
+edge-replicated (forward) and zero-padded (inverse). `is_p` is a python bool here: the caller knows
 each frame's type. B4T is defined for even dimensions only, as in the
 JAX package.
 """
@@ -24,6 +24,11 @@ import torch.nn.functional as F
 from ..constants import MAXLVL, MINQUANT, QP_I, QP_P, round_shift
 
 from .cint import lb2, round2, round4, round8, tdiv, trunc_div
+
+
+# the Haar kernel's tile side and the levels a tile runs (64 -> 1): they
+# size its scratch and count its launches, so they match csrc/sbt.cu
+HAAR_TILE, HAAR_TILE_LEVELS = 64, 6
 
 
 def nlevels(w: int, h: int) -> int:
@@ -134,35 +139,49 @@ def _b4t_inv_2d(a):
     return _b4t_inv_rows(_b4t_inv_rows(a).T).T
 
 
-def haar_fwd_level(cur, out, scale_ll: bool):
-    """One forward Haar level of the carried region cur (hs, ws) int32:
-    writes LH (ch, fw), HL (fh, cw) and HH (fh, fw) into their rectangles
-    of the assembled coefficient array `out` (LH at [0, cw), HL at
-    [ch, 0), HH at [ch, cw)) and returns LL (ch, cw), a new tensor. cur
-    must not overlap what this level writes. CUDA tensors launch the
-    kernel csrc/sbt.cu; CPU tensors take the plain `_haar_fwd_region`."""
-    hs, ws = cur.shape
-    ch, cw, fh, fw = (hs + 1) // 2, (ws + 1) // 2, hs // 2, ws // 2
-    if not cur.is_cuda:
-        LL, LH, HL, HH = _haar_fwd_region(cur, scale_ll)
+def _haar_fwd_pyramid_plain(cur, out, first: int, lvls: int):
+    """The plain version of haar_fwd_pyramid: one `_haar_fwd_region` per
+    level."""
+    for i in range(first, lvls + 1):
+        hs, ws = cur.shape
+        ch, cw, fh, fw = (hs + 1) // 2, (ws + 1) // 2, hs // 2, ws // 2
+        cur, LH, HL, HH = _haar_fwd_region(cur, scale_ll=i > 1)
         out[:ch, cw:cw + fw] = LH
         out[ch:ch + fh, :cw] = HL
         out[ch:ch + fh, cw:cw + fw] = HH
-        return LL
+    out[:cur.shape[0], :cur.shape[1]] = cur
+
+
+def haar_fwd_pyramid(cur, out, first: int, lvls: int):
+    """Forward Haar levels first..lvls of the region cur (hs, ws) int32
+    (level `first` reads cur; LL scaled above level 1): every level's
+    LH/HL/HH into its rectangles of the assembled coefficient array
+    `out`, the last LL into its top-left corner; with no level to run,
+    cur itself. cur must not overlap out. CUDA tensors take one C call
+    of csrc/sbt.cu (a tile stage and, past 6 levels, a coarse stage: 1
+    or 2 launches); CPU tensors the plain version."""
+    hs, ws = cur.shape
+    if first > lvls:
+        out[:hs, :ws] = cur
+        return
+    if not cur.is_cuda:
+        _haar_fwd_pyramid_plain(cur, out, first, lvls)
+        return
     from ..kernels.build import LAUNCHES, check, lib, stream_ptr
     for t in (cur, out):
         if t.dtype != torch.int32 or t.dim() != 2 or t.stride(1) != 1:
-            raise ValueError("haar_fwd_level takes 2-D int32 tensors with "
-                             "contiguous rows")
+            raise ValueError("haar_fwd_pyramid takes 2-D int32 tensors "
+                             "with contiguous rows")
     if out.device != cur.device or out.shape[0] < hs or out.shape[1] < ws:
         raise ValueError("out must hold the region on the same device")
-    ll = torch.empty((ch, cw), dtype=torch.int32, device=cur.device)
-    err = lib().dsv1_haar_fwd(cur.data_ptr(), cur.stride(0), hs, ws,
-                              ll.data_ptr(), out.data_ptr(), out.stride(0),
-                              int(scale_ll), stream_ptr(cur))
-    check(err, "dsv1_haar_fwd")
-    LAUNCHES["haar_fwd"] += 1
-    return ll
+    coarse = lvls - first + 1 > HAAR_TILE_LEVELS
+    mid = torch.empty(-(-hs // HAAR_TILE) * -(-ws // HAAR_TILE) if coarse
+                      else 0, dtype=torch.int32, device=cur.device)
+    err = lib().dsv1_haar_pyramid(cur.data_ptr(), cur.stride(0), hs, ws,
+                                  first, lvls, out.data_ptr(), out.stride(0),
+                                  mid.data_ptr(), stream_ptr(cur))
+    check(err, "dsv1_haar_pyramid")
+    LAUNCHES["haar_fwd"] += 1 + coarse
 
 
 def fwd_sbt(coefs, is_p: bool):
@@ -172,16 +191,14 @@ def fwd_sbt(coefs, is_p: bool):
     cur = coefs.to(torch.int32)
     first = 1
     if not is_p and lvls >= 1:
-        # B4T level 1 gives all four bands in place; the next level reads
-        # a copy of its LL, since it overwrites that corner
+        # B4T level 1 gives all four bands in place; the Haar levels read
+        # a copy of its LL, since they overwrite that corner
         out = _b4t_fwd_2d(cur)
         cur = out[:(H + 1) // 2, :(W + 1) // 2].clone()
         first = 2
     else:
         out = torch.empty_like(cur)
-    for i in range(first, lvls + 1):
-        cur = haar_fwd_level(cur, out, scale_ll=i > 1)
-    out[:cur.shape[0], :cur.shape[1]] = cur
+    haar_fwd_pyramid(cur, out, first, lvls)
     return out
 
 

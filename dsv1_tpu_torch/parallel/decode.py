@@ -52,8 +52,11 @@ class GopDecoder:
         is_p = bool(pic["has_ref"])
         stable = torch.from_numpy(pic["stable"]).to(dev)
         if is_p:
-            mv = [torch.from_numpy(pic[k].astype(np.int32)).to(dev)
-                  for k in ("modes", "mvx", "mvy", "submask")]
+            mv = torch.from_numpy(np.stack([
+                pic[k].astype(np.int32)
+                for k in ("modes", "mvx", "mvy", "submask")])).to(dev)
+            preds = bmc.compensate_frame(ref_img, self.layout, self.blk_w,
+                                         self.blk_h, self.nbh, self.nbv, *mv)
         outs = []
         for c in range(3):
             p = self.layout.planes[c]
@@ -66,10 +69,7 @@ class GopDecoder:
             rp = sbt.coefs_to_plane(sbt.inv_sbt(
                 coefs, pic["quant"], is_p, is_luma=(c == 0)))[:p.h, :p.w]
             if is_p:
-                pred = bmc.compensate_plane(ref_img, self.layout, c,
-                                            self.blk_w, self.blk_h,
-                                            self.nbh, self.nbv, *mv)
-                rp = bmc.add_residual(pred, rp)
+                rp = bmc.add_residual(preds[c], rp)
             outs.append(rp)
         new_img = fr.image_from_planes(self.layout, outs)
         return (new_img if pic["is_ref"] else ref_img), outs

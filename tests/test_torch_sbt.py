@@ -1,9 +1,10 @@
 """PyTorch port vs JAX: forward and inverse subband transforms, intra (B4T
 level 1, even dims) and inter (Haar), luma (filtered inverse) and chroma,
-even and odd sizes; and the port's Haar level (`haar_fwd_level`, the
-plain version of csrc/sbt.cu) against the Pallas Haar kernel of
-tools/bench_haar.py in interpret mode and its `fwd_v4`. Integer-exact:
-compared with assert_array_equal."""
+even and odd sizes, pyramids deeper than the kernel's 6 tile levels; and
+the port's Haar level (`_haar_fwd_region`) and Haar pyramid
+(`haar_fwd_pyramid`, on the CPU the plain version of csrc/sbt.cu)
+against the Pallas Haar kernel of tools/bench_haar.py in interpret mode
+and its `fwd_v4`. Integer-exact: compared with assert_array_equal."""
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,8 @@ def _coefs(rng, h, w):
     (64, 2, False),
     (54, 38, False), (102, 70, False),  # intra: odd regions from level 2
     (37, 23, True), (1, 5, True),       # odd P planes, a 1-wide column
+    # more than 6 Haar levels, widths not divisible by 64
+    (200, 130, True), (130, 70, False), (1, 300, True), (300, 1, True),
 ])
 def test_fwd_sbt_matches_jax(w, h, is_p):
     a = _coefs(np.random.default_rng(w + h), h, w)
@@ -86,21 +89,28 @@ def _pallas_haar_level(a, TH=8, TW=512):
 
 
 def _port_level(a, scale_ll=True):
-    """The port's plain Haar level: (LL, LH, HL, HH) numpy arrays."""
+    """One Haar level of the port, (LL, LH, HL, HH) numpy arrays, twice:
+    from `_haar_fwd_region` and from the plain Haar pyramid run for that
+    one level (level 2 scales its LL, level 1 does not), whose bands and
+    LL land in the assembled array."""
     H, W = a.shape
+    t = torch.from_numpy(a)
+    region = [x.numpy() for x in tsbt._haar_fwd_region(t, scale_ll)]
     out = torch.zeros((H, W), dtype=torch.int32)
-    ll = tsbt.haar_fwd_level(torch.from_numpy(a), out, scale_ll).numpy()
+    lvl = 2 if scale_ll else 1
+    tsbt._haar_fwd_pyramid_plain(t, out, lvl, lvl)
     o = out.numpy()
     ch, cw = (H + 1) // 2, (W + 1) // 2
-    return ll, o[:ch, cw:], o[ch:, :cw], o[ch:, cw:]
+    return region, [o[:ch, :cw], o[:ch, cw:], o[ch:, :cw], o[ch:, cw:]]
 
 
 def test_haar_level_plain_matches_pallas_kernel():
     a = np.random.default_rng(5).integers(-5000, 5000, (16, 1024)) \
         .astype(np.int32)
-    for name, g, e in zip(("LL", "LH", "HL", "HH"), _port_level(a),
-                          _pallas_haar_level(a)):
-        np.testing.assert_array_equal(g, np.asarray(e), err_msg=name)
+    want = [np.asarray(e) for e in _pallas_haar_level(a)]
+    for got in _port_level(a):
+        for name, g, e in zip(("LL", "LH", "HL", "HH"), got, want):
+            np.testing.assert_array_equal(g, e, err_msg=name)
 
 
 def test_haar_level_plain_matches_bench_fwd_v4():
@@ -112,26 +122,51 @@ def test_haar_level_plain_matches_bench_fwd_v4():
         jax.config.update("jax_compilation_cache_dir", cache)
     a = np.random.default_rng(6).integers(-256, 256, (1080, 1920)) \
         .astype(np.int32)
-    ll, lh, hl, hh = _port_level(a)
-    got = np.block([[ll, lh], [hl, hh]])
-    np.testing.assert_array_equal(got, np.asarray(
-        jax.jit(bench_haar.fwd_v4)(jnp.asarray(a))))
+    want = np.asarray(jax.jit(bench_haar.fwd_v4)(jnp.asarray(a)))
+    for ll, lh, hl, hh in _port_level(a):
+        np.testing.assert_array_equal(np.block([[ll, lh], [hl, hh]]), want)
 
 
 @pytest.mark.parametrize("h,w", [(9, 7), (1, 6), (5, 1)])
 def test_haar_level_odd_region_in_assembled_array(h, w):
-    """An odd region inside a larger array: the bands land in their
-    rectangles, nothing outside the region is written, LL is returned."""
+    """An odd region inside a larger array, one level of the pyramid: the
+    bands land in their rectangles, the LL in the corner, nothing
+    outside the region is written."""
     rng = np.random.default_rng(h * w)
     a = rng.integers(-999, 999, (h, w)).astype(np.int32)
     out = torch.full((h + 3, w + 2), 7777, dtype=torch.int32)
-    ll = tsbt.haar_fwd_level(torch.from_numpy(a), out, False).numpy()
+    tsbt.haar_fwd_pyramid(torch.from_numpy(a), out, 1, 1)
     L = tsbt._haar_fwd_region(torch.from_numpy(a), False)
     ch, cw, fh, fw = (h + 1) // 2, (w + 1) // 2, h // 2, w // 2
     o = out.numpy()
-    np.testing.assert_array_equal(ll, L[0].numpy())
+    np.testing.assert_array_equal(o[:ch, :cw], L[0].numpy())
     np.testing.assert_array_equal(o[:ch, cw:cw + fw], L[1].numpy())
     np.testing.assert_array_equal(o[ch:ch + fh, :cw], L[2].numpy())
     np.testing.assert_array_equal(o[ch:ch + fh, cw:cw + fw], L[3].numpy())
-    assert (o[:ch, :cw] == 7777).all()          # LL corner left alone
     assert (o[h:] == 7777).all() and (o[:, w:] == 7777).all()
+
+
+@pytest.mark.parametrize("h,w,first", [(70, 200, 1), (130, 65, 2),
+                                       (300, 1, 1), (1, 1, 1)])
+def test_haar_pyramid_matches_level_loop(h, w, first):
+    """The pyramid against one `_haar_fwd_region` per level, written into
+    a larger array: the levels' bands, the last LL in the corner (the
+    region itself when no level runs), nothing written outside."""
+    rng = np.random.default_rng(h + w)
+    a = rng.integers(-999, 999, (h, w)).astype(np.int32)
+    lvls = tsbt.nlevels(w, h)
+    out = torch.full((h + 2, w + 3), 7777, dtype=torch.int32)
+    tsbt.haar_fwd_pyramid(torch.from_numpy(a), out, first, lvls)
+    want = np.full((h + 2, w + 3), 7777, np.int32)
+    cur = a
+    for i in range(first, lvls + 1):
+        hs, ws = cur.shape
+        ch, cw = (hs + 1) // 2, (ws + 1) // 2
+        LL, LH, HL, HH = (x.numpy() for x in tsbt._haar_fwd_region(
+            torch.from_numpy(cur), i > 1))
+        want[:ch, cw:ws] = LH
+        want[ch:hs, :cw] = HL
+        want[ch:hs, cw:ws] = HH
+        cur = LL
+    want[:cur.shape[0], :cur.shape[1]] = cur
+    np.testing.assert_array_equal(out.numpy(), want)

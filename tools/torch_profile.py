@@ -7,9 +7,12 @@ through `dsv1_tpu_torch.cli.main` with the CLI's defaults (per-frame
 ABR), from and to files. Reads the per-GOP layer spans the encoder
 records (`gop.upload`, `gop.motion`, `gop.recon_chain` with
 `gop.rate_read` inside it under ABR, `gop.pack`; parallel/gop.py), the
-device busy share and the top device kernels; then profiles the decode
-of the stream the same way. The same encode also runs once without the
-profiler, so the profiler's own cost shows. Needs a CUDA device.
+device busy share, the top device kernels and the device kernels
+launched per encoded frame (kernel events, memcpy and memset left out,
+over the clip's frames); then profiles the decode of the stream the
+same way. The same encode also runs once without the profiler, so the
+profiler's own cost shows. The last line sums up the encode: kernels
+per frame and the `gop.recon_chain` seconds. Needs a CUDA device.
 
     python3 tools/torch_profile.py [--clip NAME] [--out FILE]
 """
@@ -35,7 +38,8 @@ def _sync():
 
 def profile(fn):
     """One fn() call under torch.profiler: (wall seconds, device busy
-    share, host seconds per encoder span, top device kernels)."""
+    share, host seconds per encoder span, top device kernels, kernel
+    launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -46,7 +50,7 @@ def profile(fn):
         fn()
         wall = _sync() - t0
     rows, spans = [], {}
-    busy_us = 0.0
+    busy_us, kernels = 0.0, 0
     for e in prof.key_averages():
         if e.key in SPANS:
             # a span also shows as a device-side range: not a kernel
@@ -59,9 +63,11 @@ def profile(fn):
         if dt_us > 0:
             busy_us += dt_us
             rows.append((dt_us, e.count, e.key))
+            if not e.key.startswith(("Memcpy", "Memset")):
+                kernels += e.count
     rows.sort(reverse=True)
     torch.cuda.synchronize()
-    return wall, busy_us * 1e-6 / wall, spans, rows[:15]
+    return wall, busy_us * 1e-6 / wall, spans, rows[:15], kernels
 
 
 def main():
@@ -116,19 +122,25 @@ def main():
     t0 = _sync()
     encode()
     plain_wall = _sync() - t0
-    enc_wall, enc_busy, spans, enc_top = profile(encode)
-    dec_wall, dec_busy, _, dec_top = profile(lambda: decode(stream))
+    enc_wall, enc_busy, spans, enc_top, enc_k = profile(encode)
+    dec_wall, dec_busy, _, dec_top, dec_k = profile(lambda: decode(stream))
     for f in (inp, dsv, out):
         f.unlink(missing_ok=True)
     td.rmdir()
     res = {"clip": args.clip, "frames": len(frames), "card": card,
            "encode": {"wall_s": plain_wall, "profiled_wall_s": enc_wall,
                       "spans_s": spans, "device_busy_share": enc_busy,
+                      "kernels_per_frame": enc_k / len(frames),
                       "top_kernels_us": enc_top},
            "decode": {"profiled_wall_s": dec_wall,
                       "device_busy_share": dec_busy,
+                      "kernels_per_frame": dec_k / len(frames),
                       "top_kernels_us": dec_top}}
     print(json.dumps(res, indent=1))
+    print(json.dumps({"clip": args.clip, "card": card,
+                      "encode_kernels_per_frame": enc_k / len(frames),
+                      "decode_kernels_per_frame": dec_k / len(frames),
+                      "recon_chain_s": spans.get("gop.recon_chain")}))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
