@@ -13,18 +13,24 @@ non-zero:
 3. kernels — each CUDA kernel against its plain PyTorch version on the
    same inputs, at the main path's shapes: on a 1080p GOP (one GOP's 11
    P-frame pairs; the arguments `hme_batch` itself passes) `hme_refine`
-   and `hme_base`; `mc` (`bmc.compensate_frame`, one call per frame, all
-   three planes) on a P frame's HME field and on a fuzzed field; on a
-   3840x2160 GOP `hme_base` again (the work of the JAX package's banded
-   4K kernel) and `mc` on both fields; `haar_fwd`
+   (`hme_kernels.refine_coarse`, one C call for every coarse level and
+   the level-0 candidates) and `hme_base`; `mc` (`bmc.compensate_frame`,
+   one call per frame, all three planes) on a P frame's HME field and on
+   a fuzzed field; on a 3840x2160 GOP `hme_base` again (the work of the
+   JAX package's banded 4K kernel) and `mc` on both fields; `haar_fwd`
    (`sbt.haar_fwd_pyramid`, one call per plane, every Haar level) on a
    1080p luma P plane and I plane, a 4K luma P plane and a few odd
-   shapes. Equality is exact (tolerance 0: the codec is integer-only).
-   Both are timed with CUDA events after warm-up, wrappers included;
-   the redesigned `mc` and `haar_fwd` also with torch.profiler's kernel
+   shapes. The HME kernels are also held to their plain versions (errors
+   only) on a 1918x1078 clip, with the encoder's candidates and with
+   fuzzed ones far past the border clamps. Equality is exact (tolerance
+   0: the codec is integer-only). Each kernel is timed with CUDA events
+   after warm-up, wrappers included, and with torch.profiler's kernel
    sums (device only). Each row gets the least time the card could take
    for the same work (bytes over 3.35 TB/s, integer operations over 132
-   SMs x 64 INT32 lanes x the SM clock, the larger of the two).
+   SMs x 64 INT32 lanes x the SM clock, the larger of the two). The HME
+   rows count their per-pixel u8 operations four pixels to an
+   instruction, as sm_90a runs them (VABSDIFF4, IDP.4A), and also give
+   the bound of the scalar count and their bytes bound alone.
 4. edges   — small clips with partial blocks, 4:4:4 chroma and per-frame
    ABR, encoded and decoded on the GPU and on the CPU (plain versions):
    the same bytes.
@@ -55,6 +61,7 @@ ROOT = Path(__file__).resolve().parent
 ENCODE_REPS = 2            # the first encode/decode of a clip warms up
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT32_LANES = 132 * 64     # SMs x INT32 lanes per SM
+U8_PER_WORD = 4            # u8 pixels per SIMD integer instruction
 KERNELS = ("mc", "hme_refine", "hme_base", "haar_fwd")
 SLICE_CLIPS = ("cif", "1080p")     # encode_stream_gops, CRF
 CLI_CLIPS = ("cif_cli", "4k_cli")  # the CLI at its defaults (ABR)
@@ -147,30 +154,51 @@ def _search_area(w, h, nbh_l, nb, BW, BH):
     return min(nbh_l * BW, w) * min((nb // nbh_l) * BH, h)
 
 
-def work_hme_refine(args):
-    """(bytes, ops) of one coarse-level call: both planes, candidates
-    and outputs; per block pixel 3 ops (sub, abs, add) for each of NC
-    candidates and 9 refine points."""
-    src2d, _ref, cmx, _cmy, _E, w, h, nbh_l, nb, BW, BH, _lvl = args
-    B, NC = src2d.shape[0], cmx.shape[-1]
-    nbytes = 2 * src2d.numel() + B * nb * (2 * NC + 3) * 4
-    return nbytes, B * _search_area(w, h, nbh_l, nb, BW, BH) * 3 * (NC + 9)
+def work_hme_coarse(cargs):
+    """(bytes, scalar ops) of the coarse levels of one GOP, summed over
+    levels: per level both planes, candidates and outputs; per block
+    pixel 3 ops (sub, abs, add) for each of NC candidates (1 at the top
+    level, else 6) and 9 refine points."""
+    src, _ref, lays, BW, BH, nbh, nbv, levels = cargs
+    nbytes = ops = 0
+    for level in range(levels, 0, -1):
+        p = lays[level].planes[0]
+        step = 1 << level
+        nbh_l = -(-nbh // step)
+        nb = nbh_l * -(-nbv // step)
+        B, NC = src[level].shape[0], 1 if level == levels else 6
+        nbytes += 2 * src[level].numel() + B * nb * (2 * NC + 3) * 4
+        ops += B * _search_area(p.w, p.h, nbh_l, nb, BW, BH) * 3 * (NC + 9)
+    return nbytes, ops
 
 
 def work_hme_base(args):
-    """(bytes, ops) of one level-0 call: as hme_refine, plus 28 ops per
+    """(bytes, scalar ops) of one level-0 call: as one coarse level, plus
+    28 ops per
     block pixel for its statistics (sums, squares, gradients, zero-MV
     window, intra test, quadrant metric) and, per in-frame block, 10 ops
     per pixel of the 14x14 centre for each of the 8 half-pel points and
     20 for the two texture statistics."""
-    src2d, _ref, cmx, _cmy, _E, w, h, nbh_l, nb, BW, BH = args
-    B, NC = src2d.shape[0], cmx.shape[-1]
+    src2d, _ref, cm, _E, w, h, nbh_l, nb, BW, BH = args
+    B, NC = src2d.shape[0], cm.shape[-1] // 2
     nbv_l = nb // nbh_l
     inframe = min(nbh_l, -(-w // BW)) * min(nbv_l, -(-h // BH))
     nbytes = 2 * src2d.numel() + B * nb * (2 * NC + 6) * 4
     ops = B * (_search_area(w, h, nbh_l, nb, BW, BH) * (3 * (NC + 9) + 28)
                + inframe * 14 * 14 * (8 * 10 + 20))
     return nbytes, ops
+
+
+def hme_bounds(work, bound):
+    """The HME rows' bound from (bytes, scalar ops): the ops packed four
+    u8 pixels to an instruction (per 4 pixels of a SAD one VABSDIFF4, one
+    mask and one IDP.4A, where the scalar count has 3 ops a pixel; every
+    other per-pixel op likewise), with the scalar count's bound and the
+    bytes bound beside it: (bound_ms, bound_by, extra row fields)."""
+    nbytes, ops = work
+    b_ms, b_by = bound(nbytes, ops / U8_PER_WORD)
+    return b_ms, b_by, {"scalar_ops_bound_ms": bound(0, ops)[0],
+                        "bytes_bound_ms": bound(nbytes, 0)[0]}
 
 
 def work_mc(planes, nbh, nbv, fields):
@@ -212,24 +240,25 @@ def work_haar(hs, ws):
     return 8 * hs * ws, 4 * hs * ws
 
 
-def row(name, source, replaces, err, ms, plain_ms, work, bound, **extra):
-    b_ms, b_by = bound(*work)
+def row(name, source, replaces, err, ms, plain_ms, b_ms, b_by, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, **extra}
 
 
-def gop_motion(dev, frames):
-    """A GOP's motion through the port's encoder; returns (encoder,
-    images, motion dict, the HME kernels' calls)."""
+def gop_motion(dev, frames, G=None):
+    """A GOP's motion (G frames, the golden GOP by default) through the
+    port's encoder; returns (encoder, images, motion dict, the HME
+    kernels' calls)."""
     import numpy as np
     import torch
 
     import dsv1_tpu_torch as dt
     from dsv1_tpu_torch.parallel.gop import build_gop_encoder
-    from dsv1_tpu_torch.utils.golden import GOP as G, QUALITY_PCT
+    from dsv1_tpu_torch.utils.golden import GOP, QUALITY_PCT
 
+    G = G or GOP
     h, w = frames[0][0].shape
     enc = build_gop_encoder(dt.SUBSAMP_420, w, h, G,
                             dt.quality_percent(QUALITY_PCT), True, 4, 50,
@@ -259,6 +288,71 @@ def device_ms(fn, reps: int) -> float:
              if e.device_type == DeviceType.CUDA
              and not e.key.startswith(("Memcpy", "Memset")))
     return us * 1e-3 / reps
+
+
+def fuzz_cands(rng, dev, B, nb, w, h):
+    """(B, nb, 6) cmx, cmy: mostly near-zero MVs, the rest up to three
+    frame sizes away, slot 0 the zero MV, some duplicates."""
+    import numpy as np
+    import torch
+    cm = rng.integers(-3 * w, 3 * w, (B, nb, 12)).astype(np.int32)
+    cm[:, :, 6:] = rng.integers(-3 * h, 3 * h, (B, nb, 6))
+    small = rng.random((B, nb, 12)) < 0.6
+    cm = np.where(small, rng.integers(-9, 10, cm.shape), cm).astype(np.int32)
+    cm[:, :, 0] = cm[:, :, 6] = 0
+    cm[:, 1::3, 2] = cm[:, 1::3, 1]
+    t = torch.from_numpy(cm).to(dev)
+    return t[..., :6].contiguous(), t[..., 6:].contiguous()
+
+
+def base_plain(bargs):
+    """refine_base_plain on hme_batch's `hme_base` arguments (candidates
+    as one (B, nb, 2 NC) tensor)."""
+    from dsv1_tpu_torch.ops import hme_kernels as hk
+    src2d, ref2d, cm, *rest = bargs
+    nc = cm.shape[-1] // 2
+    return hk.refine_base_plain(src2d, ref2d, cm[..., :nc], cm[..., nc:],
+                                *rest)
+
+
+def check_hme_edges(dev, seed):
+    """The HME kernels vs their plain versions on a 1918x1078 clip of 3
+    frames (luma width not a multiple of 4 or of the 64-wide block, odd
+    widths at the coarse levels): `refine_coarse` and `refine_base_cm`
+    on the encoder's own arguments, `refine_base` and `refine_level` (at
+    levels 1 and the top) on fuzzed candidates. Returns the largest
+    error of the coarse search and of level 0."""
+    import numpy as np
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.ops import hme_kernels as hk
+    from dsv1_tpu_torch.utils import corpus
+    w, h, n = 1918, 1078, 3
+    frames = corpus.split_frames(corpus.make_clip(w, h, dt.SUBSAMP_420, n,
+                                                  seed=seed),
+                                 w, h, dt.SUBSAMP_420, n)
+    enc, _imgs, _mv, calls = gop_motion(dev, frames, n)
+    (cargs,) = [a for name, a in calls if name == "hme_coarse"]
+    (bargs,) = [a for name, a in calls if name == "hme_base"]
+    err_c = max_abs_err(hk.refine_coarse(*cargs),
+                        hk.refine_coarse_plain(*cargs))
+    err_b = max_abs_err(hk.refine_base_cm(*bargs), base_plain(bargs))
+    rng = np.random.default_rng(seed)
+    B = bargs[0].shape[0]
+    fb = (*bargs[:2], *fuzz_cands(rng, dev, B, enc.nbh * enc.nbv, w, h),
+          *bargs[3:])
+    err_b = max(err_b, max_abs_err(hk.refine_base(*fb),
+                                   hk.refine_base_plain(*fb)))
+    for level in (1, enc.levels):
+        p = enc.layouts[level].planes[0]
+        nbh_l = -(-enc.nbh // (1 << level))
+        nb = nbh_l * -(-enc.nbv // (1 << level))
+        la = (cargs[0][level], cargs[1][level],
+              *fuzz_cands(rng, dev, B, nb, w, h), p.ext, p.w, p.h, nbh_l,
+              nb, enc.blk_w, enc.blk_h, level)
+        err_c = max(err_c, max_abs_err(hk.refine_level(*la),
+                                       hk.refine_level_plain(*la)))
+    return err_c, err_b
 
 
 def haar_case(dev, hs, ws, is_p, seed):
@@ -338,36 +432,46 @@ def phase_kernels(dev, bound, clips):
     _yuv, frames = clips["1080p"]
     enc, imgs, mv, calls = gop_motion(dev, frames)
     H, W = frames[0][0].shape
-    lvl_args = [a for name, a in calls if name == "hme_refine"]
+    (cargs,) = [a for name, a in calls if name == "hme_coarse"]
     (bargs,) = [a for name, a in calls if name == "hme_base"]
     B = bargs[0].shape[0]
     bw, bh, nbh, nbv = enc.blk_w, enc.blk_h, enc.nbh, enc.nbv
     rows = []
 
-    # --- coarse levels: kernel vs plain at every level, same inputs
-    err = max(max_abs_err(hk.refine_level(*a), hk.refine_level_plain(*a))
-              for a in lvl_args)
-    ms = cuda_ms(lambda: [hk.refine_level(*a) for a in lvl_args], 20)
-    plain_ms = cuda_ms(lambda: [hk.refine_level_plain(*a)
-                                for a in lvl_args], 3)
-    work = [work_hme_refine(a) for a in lvl_args]
+    # edge geometries (errors only): odd widths, partial blocks, MVs far
+    # past the clamps
+    edge_coarse, edge_base = check_hme_edges(dev, 13)
+
+    # --- the coarse levels, one C call: its level-0 candidates vs plain
+    err = max(max_abs_err(hk.refine_coarse(*cargs),
+                          hk.refine_coarse_plain(*cargs)), edge_coarse)
+    kern = lambda: hk.refine_coarse(*cargs)  # noqa: E731
+    ms = cuda_ms(kern, 20)
+    plain_ms = cuda_ms(lambda: hk.refine_coarse_plain(*cargs), 3)
+    b_ms, b_by, b_extra = hme_bounds(work_hme_coarse(cargs), bound)
     rows.append(row("hme_refine", "dsv1_tpu_torch/csrc/hme.cu",
                     "dsv1_tpu/ops/pallas_hme.py:130", err, ms, plain_ms,
-                    (sum(x for x, _ in work), sum(y for _, y in work)),
-                    bound, shape=f"1080p levels {enc.levels}..1, B={B}"))
+                    b_ms, b_by,
+                    shape=f"1080p levels {enc.levels}..1 and the level-0 "
+                          f"candidates, B={B}", device_ms=device_ms(kern, 20),
+                    edge_max_abs_err=edge_coarse, **b_extra))
 
     # --- level 0
-    err = max_abs_err(hk.refine_base(*bargs), hk.refine_base_plain(*bargs))
-    ms = cuda_ms(lambda: hk.refine_base(*bargs), 20)
-    plain_ms = cuda_ms(lambda: hk.refine_base_plain(*bargs), 3)
+    err = max(max_abs_err(hk.refine_base_cm(*bargs), base_plain(bargs)),
+              edge_base)
+    kern = lambda: hk.refine_base_cm(*bargs)  # noqa: E731
+    ms = cuda_ms(kern, 20)
+    plain_ms = cuda_ms(lambda: base_plain(bargs), 3)
+    b_ms, b_by, b_extra = hme_bounds(work_hme_base(bargs), bound)
     rows.append(row("hme_base", "dsv1_tpu_torch/csrc/hme.cu",
                     "dsv1_tpu/ops/pallas_hme.py:339", err, ms, plain_ms,
-                    work_hme_base(bargs), bound,
-                    shape=f"1080p B={B} nb={nbh * nbv} {bw}x{bh}"))
+                    b_ms, b_by, shape=f"1080p B={B} nb={nbh * nbv} {bw}x{bh}",
+                    device_ms=device_ms(kern, 20),
+                    edge_max_abs_err=edge_base, **b_extra))
 
     # --- MC, one call per frame: 1080p here, 4K below
     mc_1080 = check_mc(dev, enc, imgs, mv, 11)
-    del imgs, mv, calls, lvl_args, bargs
+    del imgs, mv, calls, cargs, bargs
 
     # --- the 4K GOP: level 0 is what the JAX package runs as its banded
     # kernel there (planes past MAX_PLANE_BYTES); the port's one kernel
@@ -376,21 +480,23 @@ def phase_kernels(dev, bound, clips):
     H4, W4 = frames4[0][0].shape
     (bargs4,) = [a for name, a in calls4 if name == "hme_base"]
     B4 = bargs4[0].shape[0]
-    err = max_abs_err(hk.refine_base(*bargs4), hk.refine_base_plain(*bargs4))
-    ms = cuda_ms(lambda: hk.refine_base(*bargs4), 10)
-    plain_ms = cuda_ms(lambda: hk.refine_base_plain(*bargs4), 2)
+    err = max_abs_err(hk.refine_base_cm(*bargs4), base_plain(bargs4))
+    kern = lambda: hk.refine_base_cm(*bargs4)  # noqa: E731
+    ms = cuda_ms(kern, 10)
+    plain_ms = cuda_ms(lambda: base_plain(bargs4), 2)
+    b_ms, b_by, b_extra = hme_bounds(work_hme_base(bargs4), bound)
     rows.append(row("hme_base_banded", "dsv1_tpu_torch/csrc/hme.cu",
                     "dsv1_tpu/ops/pallas_hme.py:662", err, ms, plain_ms,
-                    work_hme_base(bargs4), bound,
-                    shape=f"4K B={B4} nb={enc4.nbh * enc4.nbv} "
-                          f"{enc4.blk_w}x{enc4.blk_h}"))
+                    b_ms, b_by, shape=f"4K B={B4} nb={enc4.nbh * enc4.nbv} "
+                                      f"{enc4.blk_w}x{enc4.blk_h}",
+                    device_ms=device_ms(kern, 10), **b_extra))
     mc_4k = check_mc(dev, enc4, imgs4, mv4, 12)
     del imgs4, mv4, calls4, bargs4
     err, ms, plain_ms, dev_ms, work, nintra = mc_1080
     err4, ms4, plain_ms4, dev_ms4, work4, nintra4 = mc_4k
     rows.append(row("mc", "dsv1_tpu_torch/csrc/mc.cu",
                     "dsv1_tpu/ops/pallas_mc.py:38", max(err, err4), ms,
-                    plain_ms, work, bound,
+                    plain_ms, *bound(*work),
                     shape="one 1080p frame, 3 planes (HME field); *_4k: "
                           "one 3840x2160 frame; errors also on a fuzzed "
                           "field", device_ms=dev_ms, intra_blocks=nintra,
@@ -409,9 +515,10 @@ def phase_kernels(dev, bound, clips):
                                   (84, 100, True), (540, 960, False)))
     rows.append(row("haar_fwd", "dsv1_tpu_torch/csrc/sbt.cu",
                     "tools/bench_haar.py:169",
-                    max(err_p, err_i, err4, err_odd), ms, plain_ms, work,
-                    bound, shape=f"luma P pyramid {H}x{W} (levels 1..); "
-                                 f"*_i: I, levels 2..; *_4k: {H4}x{W4} P",
+                    max(err_p, err_i, err4, err_odd), ms, plain_ms,
+                    *bound(*work),
+                    shape=f"luma P pyramid {H}x{W} (levels 1..); "
+                          f"*_i: I, levels 2..; *_4k: {H4}x{W4} P",
                     device_ms=dev_ms, ms_i=ms_i, plain_ms_i=plain_ms_i,
                     device_ms_i=dev_ms_i, bound_ms_i=bound(*work_i)[0],
                     ms_4k=ms4, plain_ms_4k=plain_ms4, device_ms_4k=dev_ms4,

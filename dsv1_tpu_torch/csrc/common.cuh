@@ -43,15 +43,4 @@ __device__ __forceinline__ void block_sum(int (&v)[N], int* red) {
   }
 }
 
-// Copies an H x W window at (r0, c0) of a plane with row stride S into
-// shared memory (row-major, width W). The caller synchronises.
-__device__ __forceinline__ void load_window(uint8_t* dst,
-                                            const uint8_t* plane, int S,
-                                            int r0, int c0, int H, int W) {
-  for (int p = threadIdx.x; p < H * W; p += kThreads) {
-    const int r = p / W, c = p - r * W;
-    dst[p] = plane[(int64_t)(r0 + r) * S + c0 + c];
-  }
-}
-
 }  // namespace dsv1

@@ -88,11 +88,12 @@ def lib():
         L.dsv1_mc_frame.argtypes = [P, I64, P, I, I, P, P, P, P, P, P]
         L.dsv1_hme_refine.argtypes = [P, P, P, I64, I, I, I, I, I, I, I, I,
                                       I, I, I, I, P, P, P, P]
+        L.dsv1_hme_coarse.argtypes = [P, I, I, I, I, I, I, P, P, P]
         L.dsv1_hme_base.argtypes = [P, P, P, I64, I, I, I, I, I, I, I, I,
                                     I, I, I, P, P, P, P, P, P, P]
         L.dsv1_haar_pyramid.argtypes = [P, I64, I, I, I, I, P, I64, P, P]
-        for fn in (L.dsv1_mc_frame, L.dsv1_hme_refine, L.dsv1_hme_base,
-                   L.dsv1_haar_pyramid):
+        for fn in (L.dsv1_mc_frame, L.dsv1_hme_refine, L.dsv1_hme_coarse,
+                   L.dsv1_hme_base, L.dsv1_haar_pyramid):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

@@ -4,13 +4,13 @@
 The reference searches a luma pyramid top-down (hme.c:378-728): per
 block, candidate MVs inherited from 5 parent positions, SAD selection,
 a 9-point full-pel refine and, at level 0, an 8-point half-pel refine
-plus an HVS-driven intra/inter cascade. The per-block window work runs
-in ops/hme_kernels.py (CUDA kernels on the GPU); candidate construction,
-the chroma-variance term and the neighbour-coupled high-detail pass are
-tensor code here.
+plus an HVS-driven intra/inter cascade. ops/hme_kernels.py does the
+search: `refine_coarse` the coarse levels with their candidates (one C
+call on the GPU), `refine_base_cm` level 0 on those candidates as they
+come; the chroma-variance term and the neighbour-coupled high-detail
+pass are tensor code here.
 """
 
-import numpy as np
 import torch
 
 from ..constants import (HP_SAD_SZ, MASK_ALL_INTRA, MODE_INTER,
@@ -19,43 +19,6 @@ from ..constants import (HP_SAD_SZ, MASK_ALL_INTRA, MODE_INTER,
 from . import hme_kernels as hk
 from .cint import U32
 from .frame import FrameLayout, plane_view
-
-# parent candidate offsets (hme.c:454)
-PT = ((0, 0), (-2, 0), (2, 0), (0, -2), (0, 2))
-
-
-def _lvl_grid(level: int, nbh: int, nbv: int):
-    step = 1 << level
-    return step, np.arange(0, nbh, step), np.arange(0, nbv, step)
-
-
-def _build_cands_batched(level: int, mvf, nbh: int, nbv: int):
-    """mvf: (B, nbv, nbh, 2) -> (B, nb, 6) cmx, cmy (full-res units):
-    slot 0 the zero MV, slots 1-5 the parent-grid neighbours, zeroed
-    when out of grid or all-zero (hme.c:452-510)."""
-    step, ii, jj = _lvl_grid(level, nbh, nbv)
-    gj, gi = np.meshgrid(jj, ii, indexing="ij")
-    gi, gj = gi.reshape(-1), gj.reshape(-1)
-    B = mvf.shape[0]
-    dev = mvf.device
-    parent_mask = ~((step << 1) - 1)
-    pi, pj = gi & parent_mask, gj & parent_mask
-    zero = torch.zeros((B, gi.size), dtype=torch.int32, device=dev)
-    cxs, cys = [zero], [zero]
-    for (ox, oy) in PT:
-        x = pi + ox * step
-        y = pj + oy * step
-        ok = torch.as_tensor((x >= 0) & (x < nbh) & (y >= 0) & (y < nbv),
-                             device=dev)
-        xc = torch.as_tensor(np.clip(x, 0, nbh - 1), device=dev)
-        yc = torch.as_tensor(np.clip(y, 0, nbv - 1), device=dev)
-        mv = mvf[:, yc, xc]                               # (B, nb, 2)
-        keep = ok[None, :, None] & (mv != 0).any(-1, keepdim=True)
-        mv = torch.where(keep, mv, 0)
-        cxs.append(mv[..., 0])
-        cys.append(mv[..., 1])
-    return torch.stack(cxs, -1), torch.stack(cys, -1)
-
 
 def _lvl2d(flats, layout: FrameLayout):
     """(B, flat) -> (B, EH, S) extended luma plane views."""
@@ -166,54 +129,19 @@ def hme_batch(src_flats, ref_flats, layouts, blk_w: int, blk_h: int,
     the full frame). Returns the level-0 dict with a leading B axis.
     When `calls` is a list, each kernel call's (name, args) is appended
     to it, so a caller can rerun a kernel on exactly these arguments."""
-    mvf = None
-    for level in range(levels, 0, -1):
-        lay = layouts[level]
-        step, ii, jj = _lvl_grid(level, nbh, nbv)
-        nbh_l, nbv_l = len(ii), len(jj)
-        nb = nbh_l * nbv_l
-        src2d = _lvl2d(src_flats[level], lay)
-        ref2d = _lvl2d(ref_flats[level], lay)
-        B = src2d.shape[0]
-        dev = src2d.device
-        if mvf is None:
-            cmx = torch.zeros((B, nb, 1), dtype=torch.int32, device=dev)
-            cmy = cmx
-        else:
-            cmx, cmy = _build_cands_batched(level, mvf, nbh, nbv)
-        p = lay.planes[0]
-        args = (src2d, ref2d, cmx, cmy, p.ext, p.w, p.h, nbh_l, nb, blk_w,
-                blk_h, level)
-        if calls is not None:
-            calls.append(("hme_refine", args))
-        dx, dy, _ = hk.refine_level(*args)
-        # block origin in level coords is (grid index * blk) >> level
-        infr = torch.as_tensor(
-            ((((ii * blk_w) >> level)[None, :] < p.w)
-             & (((jj * blk_h) >> level)[:, None] < p.h)).reshape(-1),
-            device=dev)
-        mvx = torch.where(infr[None, :], dx << level, 0)
-        mvy = torch.where(infr[None, :], dy << level, 0)
-        field = torch.stack([mvx, mvy], -1).reshape(B, nbv_l, nbh_l, 2)
-        mvf = torch.zeros((B, nbv, nbh, 2), dtype=torch.int32, device=dev)
-        mvf[:, ::step, ::step] = field.to(torch.int32)
-
-    lay = layouts[0]
-    src2d = _lvl2d(src_flats[0], lay)
-    ref2d = _lvl2d(ref_flats[0], lay)
-    B = src2d.shape[0]
-    nb = nbh * nbv
-    if mvf is None:
-        cmx = torch.zeros((B, nb, 1), dtype=torch.int32, device=src2d.device)
-        cmy = cmx
-    else:
-        cmx, cmy = _build_cands_batched(0, mvf, nbh, nbv)
-    p = lay.planes[0]
-    args = (src2d, ref2d, cmx, cmy, p.ext, p.w, p.h, nbh, nb, blk_w, blk_h)
+    src2d = [_lvl2d(src_flats[lv], layouts[lv]) for lv in range(levels + 1)]
+    ref2d = [_lvl2d(ref_flats[lv], layouts[lv]) for lv in range(levels + 1)]
+    cargs = (src2d, ref2d, layouts, blk_w, blk_h, nbh, nbv, levels)
+    if calls is not None:
+        calls.append(("hme_coarse", cargs))
+    cm = hk.refine_coarse(*cargs)
+    p = layouts[0].planes[0]
+    args = (src2d[0], ref2d[0], cm, p.ext, p.w, p.h, nbh, nbh * nbv, blk_w,
+            blk_h)
     if calls is not None:
         calls.append(("hme_base", args))
-    kouts = hk.refine_base(*args)
-    out = refine_base_from_kernel(src_flats[0], ref_flats[0], lay, blk_w,
-                                  blk_h, nbh, nbv, subsamp, kouts)
+    kouts = hk.refine_base_cm(*args)
+    out = refine_base_from_kernel(src_flats[0], ref_flats[0], layouts[0],
+                                  blk_w, blk_h, nbh, nbv, subsamp, kouts)
     out["intra_pct"] = out["nintra"] * 100 // (nbh * nbv)
     return out

@@ -2,22 +2,37 @@
 
 Replaces the Pallas kernels of dsv1_tpu/ops/pallas_hme.py:
 
-- `refine_level`: `_refine_kernel` (pallas_hme.py:130). One pyramid
-  level, per block: masked SAD against up to NC candidate MVs (shifted
-  `>> level`) with border-validity bounds and a strict first-minimum
-  pick, the full-pel clamp, then the 9-point XF/YF refine.
-- `refine_base`: `_base_kernel` (pallas_hme.py:339). Level 0 at effort
-  0: the same search, the 8-point half-pel refine on 14x14 windows with
-  the 4-tap filters applied in-kernel, block texture/variance with u32
-  wrap, the zero-MV intra test, the luma GO_INTRA cascade and the
-  quadrant good/evil metric.
+- `refine_coarse`: `_refine_kernel` (pallas_hme.py:130) over every
+  coarse pyramid level, `levels`..1, and the candidate construction
+  between them. Per level and block: masked SAD against up to NC
+  candidate MVs (shifted `>> level`) with border-validity bounds and a
+  strict first-minimum pick, the full-pel clamp, then the 9-point XF/YF
+  refine; each level's candidates are the zero MV and five parent-grid
+  neighbours in the level above's field. Returns the level-0
+  candidates, (B, nb, 2 NC). On the GPU one C call launches one kernel
+  per level and one that writes the level-0 candidates, with no host
+  work between; it counts each of those kernels as a launch.
+- `refine_level`: one such level on given candidates.
+- `refine_base_cm`: `_base_kernel` (pallas_hme.py:339) and its banded
+  form (:662), on `refine_coarse`'s candidates as they come. Level 0 at
+  effort 0: the same search, the 8-point half-pel refine on 14x14
+  windows with the 4-tap filters applied in-kernel, block
+  texture/variance with u32 wrap, the zero-MV intra test, the luma
+  GO_INTRA cascade and the quadrant good/evil metric. `refine_base` is
+  the same on the candidates' x and y halves.
 
 Windows are read from the unpadded extended (EH, S) plane with every
 origin clamped into it, as the Pallas bodies do (the C reference reads
-out of bounds there). The wrappers take the plain version for CPU
-tensors and launch csrc/hme.cu for CUDA tensors; there is no fallback.
+out of bounds there). The kernels (csrc/hme.cu) read pixels four to a
+32-bit word, so their wrappers require word-aligned planes, strides,
+borders and block widths, and raise otherwise. The wrappers take the
+plain version for CPU tensors and launch the kernels for CUDA tensors;
+there is no fallback.
 """
 
+import ctypes
+
+import numpy as np
 import torch
 
 from ..constants import FRAME_BORDER
@@ -33,6 +48,8 @@ YH = (0, 0, 1, -1, -1, -1, 1, 1)
 HP = 14      # HP_SAD_SZ
 NB_W = 24    # half-pel neighbourhood (>= HP + 2 origin + 3 taps)
 IMAX = 2**31 - 1
+# parent candidate offsets (hme.c:454)
+PT = ((0, 0), (-2, 0), (2, 0), (0, -2), (0, 2))
 
 # flag bits of refine_base's `flags` output (as in pallas_hme.py)
 FLAG_GO_INTRA = 1   # luma intra-cascade verdict (chroma term added later)
@@ -127,6 +144,7 @@ def _search(g: _Grid, cm, NC: int, level: int, srcw):
 
 
 def _cands(cmx, cmy):
+    """(B, nb, 2 NC) int32 candidates, x then y."""
     return torch.cat([cmx, cmy], dim=-1).to(torch.int32).contiguous()
 
 
@@ -136,6 +154,81 @@ def refine_level_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH,
     g = _Grid(src2d, ref2d, E, w, h, nbh_l, nb, BW, BH)
     cm = _cands(cmx, cmy)
     return _search(g, cm, cmx.shape[-1], level, g.srcw())
+
+
+def _lvl_grid(level: int, nbh: int, nbv: int):
+    step = 1 << level
+    return step, np.arange(0, nbh, step), np.arange(0, nbv, step)
+
+
+def _build_cands_batched(level: int, mvf, nbh: int, nbv: int):
+    """mvf: (B, nbv, nbh, 2) -> (B, nb, 6) cmx, cmy (full-res units):
+    slot 0 the zero MV, slots 1-5 the parent-grid neighbours, zeroed
+    when out of grid or all-zero (hme.c:452-510)."""
+    step, ii, jj = _lvl_grid(level, nbh, nbv)
+    gj, gi = np.meshgrid(jj, ii, indexing="ij")
+    gi, gj = gi.reshape(-1), gj.reshape(-1)
+    B = mvf.shape[0]
+    dev = mvf.device
+    parent_mask = ~((step << 1) - 1)
+    pi, pj = gi & parent_mask, gj & parent_mask
+    zero = torch.zeros((B, gi.size), dtype=torch.int32, device=dev)
+    cxs, cys = [zero], [zero]
+    for (ox, oy) in PT:
+        x = pi + ox * step
+        y = pj + oy * step
+        ok = torch.as_tensor((x >= 0) & (x < nbh) & (y >= 0) & (y < nbv),
+                             device=dev)
+        xc = torch.as_tensor(np.clip(x, 0, nbh - 1), device=dev)
+        yc = torch.as_tensor(np.clip(y, 0, nbv - 1), device=dev)
+        mv = mvf[:, yc, xc]                               # (B, nb, 2)
+        keep = ok[None, :, None] & (mv != 0).any(-1, keepdim=True)
+        mv = torch.where(keep, mv, 0)
+        cxs.append(mv[..., 0])
+        cys.append(mv[..., 1])
+    return torch.stack(cxs, -1), torch.stack(cys, -1)
+
+
+def refine_coarse_plain(src_levels, ref_levels, layouts, blk_w, blk_h, nbh,
+                        nbv, levels):
+    """Plain form of `refine_coarse`: the level loop of the JAX package's
+    `hme_batch` (dsv1_tpu/ops/hme.py:731-767) through
+    `refine_level_plain`, and the level-0 candidates."""
+    mvf = None
+    for level in range(levels, 0, -1):
+        lay = layouts[level]
+        step, ii, jj = _lvl_grid(level, nbh, nbv)
+        nbh_l, nbv_l = len(ii), len(jj)
+        nb = nbh_l * nbv_l
+        src2d, ref2d = src_levels[level], ref_levels[level]
+        B = src2d.shape[0]
+        dev = src2d.device
+        if mvf is None:
+            cmx = torch.zeros((B, nb, 1), dtype=torch.int32, device=dev)
+            cmy = cmx
+        else:
+            cmx, cmy = _build_cands_batched(level, mvf, nbh, nbv)
+        p = lay.planes[0]
+        dx, dy, _ = refine_level_plain(src2d, ref2d, cmx, cmy, p.ext, p.w,
+                                       p.h, nbh_l, nb, blk_w, blk_h, level)
+        # block origin in level coords is (grid index * blk) >> level
+        infr = torch.as_tensor(
+            ((((ii * blk_w) >> level)[None, :] < p.w)
+             & (((jj * blk_h) >> level)[:, None] < p.h)).reshape(-1),
+            device=dev)
+        mvx = torch.where(infr[None, :], dx << level, 0)
+        mvy = torch.where(infr[None, :], dy << level, 0)
+        field = torch.stack([mvx, mvy], -1).reshape(B, nbv_l, nbh_l, 2)
+        mvf = torch.zeros((B, nbv, nbh, 2), dtype=torch.int32, device=dev)
+        mvf[:, ::step, ::step] = field.to(torch.int32)
+    if mvf is None:
+        B = src_levels[0].shape[0]
+        cmx = torch.zeros((B, nbh * nbv, 1), dtype=torch.int32,
+                          device=src_levels[0].device)
+        cmy = cmx
+    else:
+        cmx, cmy = _build_cands_batched(0, mvf, nbh, nbv)
+    return _cands(cmx, cmy)
 
 
 def _texture14(a):
@@ -294,14 +387,25 @@ def refine_base_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
             luma_tex.to(i32), svar.to(i32))
 
 
-def _check_planes(src2d, ref2d, cmx, cmy):
+def _check_planes(src2d, ref2d, E, BW):
+    """The layout the kernels read: (B, EH, S) uint8 planes with
+    contiguous rows, pixels loaded four to an aligned word (so the
+    source window of every block starts on a word)."""
     for t in (src2d, ref2d):
         if t.dtype != torch.uint8 or t.dim() != 3 or t.stride(2) != 1 \
                 or t.stride(1) != t.shape[2]:
             raise ValueError("planes must be (B, EH, S) uint8 with "
                              "contiguous rows")
+        if t.data_ptr() % 4 or t.stride(0) % 4:
+            raise ValueError("planes must start on 4-byte words")
     if src2d.shape != ref2d.shape or src2d.stride(0) != ref2d.stride(0):
         raise ValueError("src and ref planes must have the same layout")
+    if src2d.shape[2] % 4 or E % 4 or BW % 4:
+        raise ValueError("row stride, border and block width must be "
+                         "multiples of 4")
+
+
+def _check_cands(src2d, cmx, cmy):
     if cmx.shape != cmy.shape or cmx.shape[0] != src2d.shape[0]:
         raise ValueError("candidate fields must be (B, nb, NC)")
 
@@ -314,7 +418,8 @@ def refine_level(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH, level):
         return refine_level_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l,
                                   nb, BW, BH, level)
     from ..kernels.build import LAUNCHES, check, lib, stream_ptr
-    _check_planes(src2d, ref2d, cmx, cmy)
+    _check_planes(src2d, ref2d, E, BW)
+    _check_cands(src2d, cmx, cmy)
     B, EH, S = src2d.shape
     cm = _cands(cmx, cmy)
     outs = [torch.empty((B, nb), dtype=torch.int32, device=src2d.device)
@@ -328,21 +433,69 @@ def refine_level(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH, level):
     return tuple(outs)
 
 
-def refine_base(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
-    """Level 0 at effort 0: (mvx, mvy, flags, qbits, luma_tex, src_var),
-    each (B, nb) int32."""
-    if not src2d.is_cuda:
-        return refine_base_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l,
-                                 nb, BW, BH)
+def refine_coarse(src_levels, ref_levels, layouts, blk_w, blk_h, nbh, nbv,
+                  levels):
+    """Levels `levels`..1 of the search, each level's candidates built
+    from the level above's field. src_levels/ref_levels: per level, the
+    (B, EH, S) u8 extended planes (entries 1..levels are searched; entry
+    0 gives the batch and the device); layouts: the levels' FrameLayouts.
+    Returns the level-0 candidates, (B, nbh * nbv, 2 NC) int32 (x then y,
+    full-res units; NC = 6, or 1 (the zero MV) when levels is 0)."""
+    if not src_levels[0].is_cuda:
+        return refine_coarse_plain(src_levels, ref_levels, layouts, blk_w,
+                                   blk_h, nbh, nbv, levels)
+    B, dev = src_levels[0].shape[0], src_levels[0].device
+    if levels == 0:
+        return torch.zeros((B, nbh * nbv, 2), dtype=torch.int32, device=dev)
     from ..kernels.build import LAUNCHES, check, lib, stream_ptr
-    _check_planes(src2d, ref2d, cmx, cmy)
+    params, fields = [], 0
+    for level in range(1, levels + 1):
+        s2, r2 = src_levels[level], ref_levels[level]
+        p = layouts[level].planes[0]
+        _check_planes(s2, r2, p.ext, blk_w)
+        if s2.shape[0] != B or s2.shape[1:] != (p.h + 2 * p.ext, p.stride):
+            raise ValueError(f"level {level} planes do not match its layout")
+        params += [s2.data_ptr(), r2.data_ptr(), s2.stride(0), *s2.shape[1:],
+                   p.ext, p.w, p.h]
+        step = 1 << level
+        fields += 2 * B * -(-nbh // step) * -(-nbv // step)
+    scratch = torch.empty(fields, dtype=torch.int32, device=dev)
+    cm = torch.empty((B, nbh * nbv, 2 * (1 + len(PT))), dtype=torch.int32,
+                     device=dev)
+    err = lib().dsv1_hme_coarse(
+        (ctypes.c_int64 * len(params))(*params), levels, nbh, nbv, blk_w,
+        blk_h, B, scratch.data_ptr(), cm.data_ptr(), stream_ptr(cm))
+    check(err, "dsv1_hme_coarse")
+    LAUNCHES["hme_refine"] += levels + 1   # a kernel per level, then cm
+    return cm
+
+
+def refine_base(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
+    """Level 0 at effort 0 on candidates cmx/cmy (B, nb, NC): (mvx, mvy,
+    flags, qbits, luma_tex, src_var), each (B, nb) int32."""
+    _check_cands(src2d, cmx, cmy)
+    return refine_base_cm(src2d, ref2d, _cands(cmx, cmy), E, w, h, nbh_l,
+                          nb, BW, BH)
+
+
+def refine_base_cm(src2d, ref2d, cm, E, w, h, nbh_l, nb, BW, BH):
+    """`refine_base` on candidates cm (B, nb, 2 NC) int32, x then y, as
+    `refine_coarse` returns them."""
+    nc = cm.shape[-1] // 2
+    if not src2d.is_cuda:
+        return refine_base_plain(src2d, ref2d, cm[..., :nc], cm[..., nc:],
+                                 E, w, h, nbh_l, nb, BW, BH)
+    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
+    _check_planes(src2d, ref2d, E, BW)
     B, EH, S = src2d.shape
-    cm = _cands(cmx, cmy)
+    if cm.dtype != torch.int32 or not cm.is_contiguous() \
+            or cm.shape != (B, nb, 2 * nc):
+        raise ValueError("candidates must be contiguous (B, nb, 2 NC) int32")
     outs = [torch.empty((B, nb), dtype=torch.int32, device=src2d.device)
             for _ in range(6)]
     err = lib().dsv1_hme_base(
         src2d.data_ptr(), ref2d.data_ptr(), cm.data_ptr(), src2d.stride(0),
-        EH, S, E, w, h, nbh_l, nb, BW, BH, cmx.shape[-1], B,
+        EH, S, E, w, h, nbh_l, nb, BW, BH, nc, B,
         *[o.data_ptr() for o in outs], stream_ptr(src2d))
     check(err, "dsv1_hme_base")
     LAUNCHES["hme_base"] += 1

@@ -9,6 +9,10 @@
   `hme_base` kernel also serves. One case of each runs in tier-1 (the
   base kernel's in both forms, on a plane with a partial bottom block
   row), the rest are `slow`.
+- The level-0 candidates of `refine_coarse` (every coarse level and the
+  candidate construction between them) against the JAX package's own
+  coarse loop run through the Pallas `_refine_kernel` in interpret mode
+  (one case in tier-1, 3 levels, 2 levels and none `slow`).
 - The port's `hme_batch` against the JAX XLA `hme()` on the geometries
   of test_hme.py (partial right column and bottom row included).
 """
@@ -137,6 +141,70 @@ def test_refine_base_plain_matches_pallas(w, h, seed, shift, banded):
                            "src_var"), got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(e),
                                       err_msg=name)
+
+
+def _jax_coarse_cands(s2, r2, lays, nbh, nbv, levels):
+    """The coarse loop of the JAX package's hme_batch (hme.py:731-767)
+    on per-level (B, EH, S) planes, through the Pallas refine kernel in
+    interpret mode: the level-0 candidates as (B, nb, 2 NC)."""
+    mvf = None
+    for level in range(levels, 0, -1):
+        lay = lays[level]
+        step, ii, jj = jhme._lvl_grid(level, nbh, nbv)
+        nbh_l, nbv_l = len(ii), len(jj)
+        nb = nbh_l * nbv_l
+        B = s2[level].shape[0]
+        if mvf is None:
+            cmx = cmy = jnp.zeros((B, nb, 1), jnp.int32)
+        else:
+            cmx, cmy = jhme._build_cands_batched(level, mvf, nbh, nbv)
+        dx, dy, _ = pallas_hme.refine_level_pallas(
+            s2[level], r2[level], cmx, cmy, lay, level, BLK, BLK, nbh_l, nb,
+            interpret=True)
+        p = lay.planes[0]
+        infr = jnp.asarray((((ii * BLK) >> level)[None, :] < p.w)
+                           & (((jj * BLK) >> level)[:, None] < p.h)) \
+            .reshape(-1)
+        field = jnp.stack([jnp.where(infr[None, :], dx << level, 0),
+                           jnp.where(infr[None, :], dy << level, 0)], -1)
+        mvf = jnp.zeros((B, nbv, nbh, 2), jnp.int32) \
+            .at[:, ::step, ::step].set(field.reshape(B, nbv_l, nbh_l, 2))
+    if mvf is None:
+        cmx = cmy = jnp.zeros((s2[0].shape[0], nbh * nbv, 1), jnp.int32)
+    else:
+        cmx, cmy = jhme._build_cands_batched(0, mvf, nbh, nbv)
+    return np.concatenate([np.asarray(cmx), np.asarray(cmy)], -1)
+
+
+COARSE_CASES = [
+    pytest.param(96, 80, [(1, 3)], LEVELS),
+    pytest.param(100, 84, [(2, 0), (3, 5)], LEVELS, marks=pytest.mark.slow),
+    pytest.param(96, 88, [(4, 11)], 2, marks=pytest.mark.slow),
+    pytest.param(96, 80, [(5, 2)], 0, marks=pytest.mark.slow),
+]
+
+
+@pytest.mark.parametrize("w,h,seeds,levels", COARSE_CASES)
+def test_refine_coarse_plain_matches_pallas(w, h, seeds, levels):
+    srcs, refs = [], []
+    for seed, shift in seeds:
+        f1, f0 = _frames(w, h, seed, shift)
+        si, lays = _pyramid(f1, w, h)
+        ri, _ = _pyramid(f0, w, h)
+        srcs.append(si)
+        refs.append(ri)
+    s2 = [jhme._lvl2d(jnp.stack([s[lv] for s in srcs]), lay)
+          for lv, lay in enumerate(lays)]
+    r2 = [jhme._lvl2d(jnp.stack([r[lv] for r in refs]), lay)
+          for lv, lay in enumerate(lays)]
+    nbh, nbv = -(-w // BLK), -(-h // BLK)
+    want = _jax_coarse_cands(s2, r2, lays, nbh, nbv, levels)
+    tl = [tfr.make_layout(SUBSAMP_420, lay.width, lay.height, True)
+          for lay in lays]
+    got = hk.refine_coarse([_t(a) for a in s2], [_t(a) for a in r2], tl,
+                           BLK, BLK, nbh, nbv, levels)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("seed,shift,w,h", [

@@ -1,22 +1,30 @@
-"""Times the port's forward Haar pyramid and its MC prediction on the GPU.
+"""Times the port's Haar, MC and HME kernels' units of work on the GPU.
 
-    python3 tools/torch_kernel_times.py [--root DIR] [--e2e N] [--out FILE]
+    python3 tools/torch_kernel_times.py [--root DIR] [--only haar,mc,hme]
+        [--e2e N] [--out FILE]
 
-The two units of work the recon chain hands to the Haar and MC kernels,
-at the main path's shapes, on random coefficients and on a golden
-clip's own motion field (the P frame with the most intra blocks of the
-first GOP, as chip_smoke.py picks it):
+The units of work the encoder hands to the Haar, MC and HME kernels, at
+the main path's shapes, on random coefficients and on golden clips'
+frames and motion fields (for MC the P frame with the most intra blocks
+of the first GOP, as chip_smoke.py picks it):
 
 - `sbt.fwd_sbt` of one 1080p luma P plane, one 1080p luma I plane (its
   B4T level included) and one 3840x2160 luma P plane;
 - the MC prediction of the three planes of one 1080p and one 3840x2160
   P frame: `bmc.compensate_frame` where the port has it, else
   `bmc.compensate_plane` for c = 0, 1, 2 (so one script times a tree
-  from before the frame-wide kernel too).
+  from before the frame-wide kernel too);
+- `hme.hme_batch` of the first GOP (11 P-frame pairs, every pyramid
+  level) of the 1080p and the 3840x2160 clip, as `GopEncoder.motion`
+  calls it, and the HME kernels' wrappers on the arguments it passes
+  them (the coarse levels, one `refine_coarse` call or, on a tree from
+  before it, one `refine_level` call per level; level 0).
 
 For each: the CUDA-event mean per call over a loop of calls (the
 wrappers' host work included), the device time per call summed from
-torch.profiler's kernel events, and the kernels launched per call.
+torch.profiler's kernel events, of it the time of the case's own
+hand-written kernels (`haar_`, `mc_` or `hme_` in the name), and the
+kernels launched and host-to-device copies made per call.
 `--e2e N` also times N encodes (`encode_stream_gops`, CRF) and N
 decodes of the 1080p golden clip after a warm-up, each to its last
 device sync, on the host clock.
@@ -50,9 +58,11 @@ def event_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps: int):
-    """(device ms per call, kernels per call) from torch.profiler's
-    kernel events over reps calls (memcpy and memset events left out)."""
+def device_ms(fn, reps: int, own: str = "dsv1"):
+    """(device ms per call, kernels per call, host-to-device copies per
+    call, device ms per call of the kernels whose names hold `own`) from
+    torch.profiler's device events over reps calls (memcpy and memset
+    events left out of the first two)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -63,22 +73,27 @@ def device_ms(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, n = 0.0, 0
+    us, n, h2d, own_us = 0.0, 0, 0, 0.0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
+        if e.key.startswith("Memcpy HtoD"):
+            h2d += e.count
         if e.key.startswith(("Memcpy", "Memset")):
             continue
         us += e.self_device_time_total
         n += e.count
-    return us * 1e-3 / reps, n / reps
+        if own in e.key:
+            own_us += e.self_device_time_total
+    return us * 1e-3 / reps, n / reps, h2d / reps, own_us * 1e-3 / reps
 
 
-def timed(name, fn, reps):
+def timed(name, fn, reps, own):
     ev = event_ms(fn, reps)
-    dev, kern = device_ms(fn, reps)
+    dev, kern, h2d, own_ms = device_ms(fn, reps, own)
     return {"name": name, "ms": ev, "device_ms": dev,
-            "kernels_per_call": kern}
+            "kernels_per_call": kern, "h2d_copies_per_call": h2d,
+            f"device_ms_of_{own}*": own_ms}
 
 
 def haar_cases(dev):
@@ -93,7 +108,8 @@ def haar_cases(dev):
         a = np.random.default_rng(h + is_p).integers(-255, 256, (h, w))
         coefs = torch.from_numpy(a.astype(np.int32)).to(dev)
         out.append(timed(f"fwd_sbt {tag}",
-                         lambda c=coefs, p=is_p: sbt.fwd_sbt(c, p), 50))
+                         lambda c=coefs, p=is_p: sbt.fwd_sbt(c, p), 50,
+                         "haar_"))
     return out
 
 
@@ -128,9 +144,80 @@ def mc_case(dev, clip):
             return [bmc.compensate_plane(img, lay, c, *geo, *fields)
                     for c in range(3)]
         unit = "compensate_plane x3"
-    r = timed(f"MC {clip} frame ({unit})", fn, 50)
+    r = timed(f"MC {clip} frame ({unit})", fn, 50, "mc_")
     r["intra_blocks"] = int(mv["nintra"][k])
     return r
+
+
+def gop_images(dev, clip):
+    """(GopEncoder, pyramid images) of a clip's first GOP, as
+    `GopEncoder.motion` builds them."""
+    import numpy as np
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.ops import frame as fr
+    from dsv1_tpu_torch.parallel.gop import build_gop_encoder
+    from dsv1_tpu_torch.utils.golden import GOP, QUALITY_PCT, clip_frames
+
+    _yuv, frames = clip_frames(clip)
+    h, w = frames[0][0].shape
+    enc = build_gop_encoder(dt.SUBSAMP_420, w, h, GOP,
+                            dt.quality_percent(QUALITY_PCT), True, 4, 50,
+                            GOP - 1, 0, str(dev))
+    packed = torch.from_numpy(np.stack([
+        np.concatenate([np.asarray(p, np.uint8).ravel() for p in f])
+        for f in frames[:GOP]])).to(dev)
+    imgs, _al = enc.prep(fr.split_packed_planes(packed, enc.subsamp, w, h))
+    return enc, imgs
+
+
+def hme_calls(enc, imgs):
+    """`hme.hme_batch` on a GOP's images: (its function, the HME
+    kernels' calls it made)."""
+    from dsv1_tpu_torch.ops import hme
+
+    def fn(calls=None):
+        return hme.hme_batch([a[1:] for a in imgs], [a[:-1] for a in imgs],
+                             enc.layouts, enc.blk_w, enc.blk_h, enc.nbh,
+                             enc.nbv, enc.subsamp, enc.levels, calls)
+    calls = []
+    fn(calls)
+    return fn, calls
+
+
+def hme_cases(dev, clip):
+    """`hme.hme_batch` of a clip's first GOP (its G - 1 P-frame pairs),
+    with the arguments `GopEncoder.motion` passes, and the HME kernels'
+    wrappers on the arguments it passes them: the coarse levels
+    (`refine_coarse` where the port has it, else one `refine_level`
+    call per level) and level 0."""
+    from dsv1_tpu_torch.ops import hme_kernels as hk
+
+    enc, imgs = gop_images(dev, clip)
+    fn, calls = hme_calls(enc, imgs)
+    (bargs,) = [a for name, a in calls if name == "hme_base"]
+    # level 0 takes the candidates as one tensor where the port has
+    # refine_base_cm, as cmx and cmy before it
+    base = getattr(hk, "refine_base_cm", hk.refine_base)
+    if hasattr(hk, "refine_coarse"):
+        (cargs,) = [a for name, a in calls if name == "hme_coarse"]
+
+        def coarse():
+            return hk.refine_coarse(*cargs)
+        unit = "refine_coarse"
+    else:
+        largs = [a for name, a in calls if name == "hme_refine"]
+
+        def coarse():
+            return [hk.refine_level(*a) for a in largs]
+        unit = f"refine_level x{len(largs)}"
+    return [timed(f"hme_batch {clip} GOP ({len(imgs[0]) - 1} pairs, levels "
+                  f"{enc.levels}..0)", fn, 20, "hme_"),
+            timed(f"{unit} {clip} GOP (levels {enc.levels}..1)", coarse, 20,
+                  "hme_"),
+            timed(f"{base.__name__} {clip} GOP ({enc.blk_w}x{enc.blk_h})",
+                  lambda: base(*bargs), 20, "hme_")]
 
 
 def e2e_case(dev, reps: int):
@@ -168,6 +255,8 @@ def main():
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose dsv1_tpu_torch is timed")
     ap.add_argument("--out", default=None, help="also write JSON here")
+    ap.add_argument("--only", default="haar,mc,hme",
+                    help="comma-separated cases to time (haar, mc, hme)")
     ap.add_argument("--e2e", type=int, default=0, metavar="N",
                     help="also time N encodes and decodes of the 1080p clip")
     args = ap.parse_args()
@@ -181,7 +270,12 @@ def main():
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    rows = haar_cases(dev) + [mc_case(dev, "1080p"), mc_case(dev, "4k_cli")]
+    only = args.only.split(",")
+    rows = haar_cases(dev) if "haar" in only else []
+    if "mc" in only:
+        rows += [mc_case(dev, "1080p"), mc_case(dev, "4k_cli")]
+    if "hme" in only:
+        rows += hme_cases(dev, "1080p") + hme_cases(dev, "4k_cli")
     if args.e2e:
         rows.append(e2e_case(dev, args.e2e))
     res = {"root": str(Path(dsv1_tpu_torch.__file__).parent.parent),

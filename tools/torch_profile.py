@@ -12,7 +12,8 @@ launched per encoded frame (kernel events, memcpy and memset left out,
 over the clip's frames); then profiles the decode of the stream the
 same way. The same encode also runs once without the profiler, so the
 profiler's own cost shows. The last line sums up the encode: kernels
-per frame and the `gop.recon_chain` seconds. Needs a CUDA device.
+per frame and the `gop.recon_chain` and `gop.motion` seconds. Needs a
+CUDA device.
 
     python3 tools/torch_profile.py [--clip NAME] [--out FILE]
 """
@@ -140,7 +141,8 @@ def main():
     print(json.dumps({"clip": args.clip, "card": card,
                       "encode_kernels_per_frame": enc_k / len(frames),
                       "decode_kernels_per_frame": dec_k / len(frames),
-                      "recon_chain_s": spans.get("gop.recon_chain")}))
+                      "recon_chain_s": spans.get("gop.recon_chain"),
+                      "motion_s": spans.get("gop.motion")}))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
