@@ -39,11 +39,22 @@ non-zero:
 6. cli     — the CLI's default path (per-frame ABR, auto bitrate, gop
    12): `dsv1_tpu_torch.cli.main` e then d on the CIF clip (24 frames)
    and on a 3840x2160 clip (13 frames), through files.
-Phases 5 and 6 are main paths: each path's streams and decodes must
+7. sequential — first the HME kernels against their plain versions on
+   the B = 1 arguments the sequential `Encoder` passes for a 1080p P
+   frame (errors, CUDA-event ms, device-only ms); then two 1920x1080
+   clips through the CLI and files: `1080p_seq_cli` (13 frames, -gopar0:
+   per-frame ABR at gop 12 on the sequential `Encoder`) decoded three
+   ways (the CLI's default decode, -drawinfo7 through the sequential
+   `Decoder`, and `Decoder().decode_stream` through the API), and
+   `1080p_gop0_cli` (12 frames, -gop0 -rc_mode1: intra only through
+   `encode_stream_gops`) with its decode.
+Phases 5, 6 and 7 are main paths: each path's streams and decodes must
 hash to dsv1_tpu_torch/data/golden.json (written from the JAX package
 by tools/torch_golden.py), and the kernels' launch counts are set to 0
-before each path and read after it; every kernel must have launched on
-each path.
+before each path and read after it; every kernel of a path must have
+launched on it (all four on the slice, CLI and sequential encodes,
+`haar_fwd` and neither `mc` nor HME on the gop-0 encode, `mc` on the
+`Decoder`).
 
 The line before the card's line lists every kernel with its launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -65,6 +76,7 @@ U8_PER_WORD = 4            # u8 pixels per SIMD integer instruction
 KERNELS = ("mc", "hme_refine", "hme_base", "haar_fwd")
 SLICE_CLIPS = ("cif", "1080p")     # encode_stream_gops, CRF
 CLI_CLIPS = ("cif_cli", "4k_cli")  # the CLI at its defaults (ABR)
+SEQ_CLIP, GOP0_CLIP = "1080p_seq_cli", "1080p_gop0_cli"
 ROW_KEYS = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -567,11 +579,17 @@ def phase_edges(dev):
             raise AssertionError(f"{w}x{h}: GPU and CPU paths disagree")
 
 
-def check_launches(path, launches):
-    for k in KERNELS:
+def check_launches(path, launches, kernels=KERNELS, absent=()):
+    """Every kernel of `kernels` launched on the path, none of
+    `absent`."""
+    for k in kernels:
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"kernel {k} was not launched on the "
                                  f"{path} path")
+    for k in absent:
+        if launches.get(k, 0):
+            raise AssertionError(f"kernel {k} was launched on the {path} "
+                                 "path")
 
 
 def phase_slice(dev, smi, golden, clips):
@@ -669,6 +687,118 @@ def phase_cli(dev, smi, golden, clips):
     return per_path
 
 
+def check_seq_hme(dev, frames):
+    """refine_coarse and refine_base_cm against their plain versions on
+    the B = 1 arguments the sequential Encoder passes for the second
+    frame of a clip (a P frame): per kernel the error, the CUDA-event ms
+    and the device-only ms."""
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.ops import hme_kernels as hk
+    h, w = frames[0][0].shape
+    enc = dt.Encoder(dt.Metadata(w, h, dt.SUBSAMP_420),
+                     dt.EncoderConfig(gop=12, stable_refresh=11), device=dev)
+    enc.start()
+    calls = []
+    for f in frames[:2]:
+        enc.encode(f, calls=calls)
+    (cargs,) = [a for name, a in calls if name == "hme_coarse"]
+    (bargs,) = [a for name, a in calls if name == "hme_base"]
+    out = {"phase": "sequential", "check": "hme_b1",
+           "shape": f"{w}x{h} B={bargs[0].shape[0]} levels {enc._levels}"}
+    for name, kern, plain in (
+            ("hme_refine", lambda: hk.refine_coarse(*cargs),
+             lambda: hk.refine_coarse_plain(*cargs)),
+            ("hme_base", lambda: hk.refine_base_cm(*bargs),
+             lambda: base_plain(bargs))):
+        out[name] = {"max_abs_err": max_abs_err(kern(), plain()),
+                     "ms": cuda_ms(kern, 20), "device_ms": device_ms(kern, 20)}
+    emit(out)
+    for name in ("hme_refine", "hme_base"):
+        if out[name]["max_abs_err"] != 0:
+            raise AssertionError(f"kernel {name} disagrees with its plain "
+                                 "version at B = 1")
+
+
+def phase_sequential(dev, smi, golden, clips):
+    """Main path 3: the sequential Encoder and Decoder and the gop-0
+    encode, through the CLI and files (and the Decoder through the API)
+    on the two 1080p sequential clips. Returns the launches summed over
+    the phase's paths."""
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch import cli
+    from dsv1_tpu_torch.kernels.build import LAUNCHES
+    from dsv1_tpu_torch.utils.golden import (CLIPS, cli_decode_args,
+                                             cli_encode_args, decoded_bytes)
+
+    check_seq_hme(dev, clips[SEQ_CLIP][1])
+    total = {}
+
+    def run(path, fn, kernels=(), absent=()):
+        """fn() with the counts set to 0: (seconds, launches, result)."""
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        got = dict(LAUNCHES)
+        check_launches(path, got, kernels, absent)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return dt_s, got, result
+
+    def cli_ok(argv):
+        if cli.main(argv, device=dev) != 0:
+            raise AssertionError(f"CLI {argv[0]} failed: {argv}")
+
+    with tempfile.TemporaryDirectory() as td:
+        inp, dsv, out = (Path(td) / f for f in ("in.yuv", "s.dsv", "o.yuv"))
+        for name, enc_kernels, enc_absent in (
+                (SEQ_CLIP, KERNELS, ()),
+                (GOP0_CLIP, ("haar_fwd",), ("mc", "hme_refine",
+                                            "hme_base"))):
+            gold = golden[name]
+            yuv, _frames = clips[name]
+            if sha(yuv) != gold["clip_sha256"]:
+                raise AssertionError(f"{name}: input clip differs from the "
+                                     "golden clip")
+            inp.write_bytes(yuv)
+            n = gold["frames"]
+            t_enc, l_enc, _ = run(f"{name} encode", lambda: cli_ok(
+                cli_encode_args(name, inp, dsv)), enc_kernels, enc_absent)
+            stream = dsv.read_bytes()
+            res = {"phase": "sequential", "clip": name,
+                   "size": f"{gold['width']}x{gold['height']}", "frames": n,
+                   "argv": gold["argv"], "stream_bytes": len(stream),
+                   "stream_sha256_ok": sha(stream) == gold["stream_sha256"],
+                   "encode_fps": n / t_enc, "encode_launches": l_enc}
+            t_dec, _, _ = run(f"{name} decode", lambda: cli_ok(
+                cli_decode_args(dsv, out)))
+            res.update(decode_sha256_ok=sha(out.read_bytes())
+                       == gold["decode_sha256"], decode_fps=n / t_dec)
+            for key, extra in CLIPS[name][5].items():
+                tag = key.replace("_sha256", "")
+                t_x, l_x, _ = run(f"{name} {tag}", lambda: cli_ok(
+                    cli_decode_args(dsv, out, extra)), ("mc",))
+                res.update({f"{key}_ok": sha(out.read_bytes()) == gold[key],
+                            f"{tag}_fps": n / t_x, f"{tag}_launches": l_x})
+            if name == SEQ_CLIP:
+                t_api, l_api, dec = run(f"{name} Decoder", lambda: list(
+                    dt.Decoder(device=dev).decode_stream(stream)), ("mc",))
+                res.update(api_decode_sha256_ok=sha(decoded_bytes(dec))
+                           == gold["decode_sha256"],
+                           api_decode_fps=n / t_api, api_decode_launches=l_api)
+            res["card"] = smi
+            emit(res)
+            bad = [k for k, v in res.items() if k.endswith("_ok") and not v]
+            if bad:
+                raise AssertionError(f"{name}: {bad} differ from the golden")
+    emit({"phase": "sequential", "launches": total})
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -687,11 +817,9 @@ def main():
     phase_edges(dev)
     slice_l = phase_slice(dev, smi, golden, clips)
     cli_l = phase_cli(dev, smi, golden, clips)
-    path_launches = {"mc": slice_l["mc"],
-                     "hme_refine": slice_l["hme_refine"],
-                     "hme_base": slice_l["hme_base"],
-                     "hme_base_banded": cli_l["4k_cli"]["hme_base"],
-                     "haar_fwd": slice_l["haar_fwd"]}
+    seq_l = phase_sequential(dev, smi, golden, clips)
+    path_launches = {k: slice_l[k] + seq_l.get(k, 0) for k in KERNELS}
+    path_launches["hme_base_banded"] = cli_l["4k_cli"]["hme_base"]
     for r in rows:
         r["launches"] = path_launches[r["name"]]
     emit({"kernels": [{k: r[k] for k in ROW_KEYS} for r in rows]})

@@ -1,11 +1,12 @@
 """dsv1_tpu_torch — the DSV1 codec in PyTorch, with CUDA kernels for Hopper.
 
 A port of the JAX package `dsv1_tpu` (which stays the reference): the
-GOP-parallel encode with CRF or the reference's per-frame ABR law
-(`encode_stream_gops`), its decode twin (`decode_stream_gops`,
-`iter_decode_gops`) and the CLI's default path
-(`python -m dsv1_tpu_torch.cli e|d`). Tensor work is PyTorch; the five
-per-block or per-level kernels of that path (motion-compensated
+GOP-parallel encode with CRF or the reference's per-frame ABR law, and
+intra-only CRF at gop 0 (`encode_stream_gops`), its decode twin
+(`decode_stream_gops`, `iter_decode_gops`), the sequential,
+resumable `Encoder` and `Decoder` (with the `draw_info` overlay) and the
+CLI (`python -m dsv1_tpu_torch.cli e|d`). Tensor work is PyTorch; the five
+per-block or per-level kernels of these paths (motion-compensated
 prediction, the coarse-level HME search, the level-0 HME search with the
 luma intra cascade, which also serves the JAX package's banded 4K form,
 and the forward Haar level) are CUDA C++ for sm_90a, built by nvcc at
@@ -25,7 +26,9 @@ from .constants import (MAX_QUALITY, RATE_CONTROL_ABR, RATE_CONTROL_CRF,
                         quality_percent)
 from .models.metadata import Metadata
 
-from .models.encoder import EncoderConfig
+from .models.decoder import (DEC_EOS, DEC_ERROR, DEC_GOT_META, DEC_OK,
+                             Decoder)
+from .models.encoder import Encoder, EncoderConfig
 from .parallel import decode_stream_gops, encode_stream_gops, \
     iter_decode_gops
 from .state import EncoderState, state_from_numpy
@@ -34,6 +37,7 @@ __all__ = ["SUBSAMP_444", "SUBSAMP_422", "SUBSAMP_420", "SUBSAMP_411",
            "MAX_QUALITY", "RATE_CONTROL_ABR", "RATE_CONTROL_CRF",
            "quality_percent", "Metadata", "EncoderConfig", "EncoderState",
            "state_from_numpy", "encode_stream_gops", "decode_stream_gops",
-           "iter_decode_gops"]
+           "iter_decode_gops", "Encoder", "Decoder", "DEC_OK", "DEC_ERROR",
+           "DEC_EOS", "DEC_GOT_META"]
 
 __version__ = "0.1.0"

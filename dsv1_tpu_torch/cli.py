@@ -8,12 +8,13 @@ Same interface as the reference CLI (dsv_main.c:94-150): `e|d` mode with
 -prefixvalue options and the same parameter tables as the JAX CLI; ABR
 default rate control with the 0=ABR/1=CRF mapping, auto bitrate
 estimation, the 3/2 ABR quality pre-boost and stabref auto =
-clamp(gop-1, 1, 14). Encode runs the GOP-parallel path (per-frame ABR or
-CRF) with frames read from disk GOP by GOP; decode streams chain by
-chain. What runs only on the JAX package's sequential path (gopar 0,
-gop 0, gop > 4096, drawinfo) and -gopabr1 / effort > 0 exit with code 2,
-"not ported yet". `main(argv, device)` runs on the card unless the
-caller passes device="cpu".
+clamp(gop-1, 1, 14). Encode routes as the JAX CLI does: the GOP-parallel
+path (per-frame ABR or CRF, gop 0 under CRF) with frames read from disk
+GOP by GOP, or the sequential `Encoder` frame by frame for -gopar0,
+gop > 4096 and ABR at gop 0. Decode streams chain by chain, or runs the
+sequential `Decoder` with -drawinfo. -gopabr1 (on the GOP-parallel path)
+and effort > 0 exit with code 2, "not ported yet". `main(argv, device)`
+runs on the card unless the caller passes device="cpu".
 """
 
 import contextlib
@@ -22,8 +23,10 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from . import constants as C
-from .models.encoder import EncoderConfig
+from .models.decoder import Decoder
+from .models.encoder import Encoder, EncoderConfig
 from .models.metadata import Metadata
+from .parallel import encode_stream_gops, iter_decode_gops
 from .utils.bitrate import estimate_bitrate
 from .utils.chroma import conv422to420, conv444to422
 from .utils.yuv import read_frame, write_frame
@@ -91,7 +94,8 @@ def enc_params():
         Param("scd", 1, 0, 1, None, "scene change detection"),
         Param("schdelta", 4, 0, 256, None, "scene change luma delta"),
         Param("gopar", 1, 0, 1, None,
-              "GOP-parallel device encode. 1 = default (0: not ported yet)"),
+              "GOP-parallel device encode (0 = the sequential encoder). "
+              "1 = default"),
         Param("effort", 0, 0, 3, None,
               "motion search effort beyond the reference. 0 = reference "
               "parity (> 0: not ported yet)"),
@@ -106,8 +110,7 @@ def dec_params():
     return [
         Param("out420p", 0, 0, 1, None, "convert output to 4:2:0"),
         Param("drawinfo", 0, 0, 7, None,
-              "draw debug info: 1=stability 2=motion vecs 4=intra blocks "
-              "(not ported yet)"),
+              "draw debug info: 1=stability 2=motion vecs 4=intra blocks"),
     ]
 
 
@@ -220,11 +223,11 @@ def encode_main(argv, device="cuda") -> int:
     stabref = _get(params, "stabref")
     if stabref == 0:
         stabref = max(1, min(gop - 1, 14))
-    if not _get(params, "gopar"):
-        return _not_ported("-gopar0 (the sequential encoder)")
-    if gop == C.GOP_INTRA or gop > 4096:
-        return _not_ported(f"-gop{gop} (the sequential encoder)")
-    if _get(params, "gopabr"):
+    # effectively infinite GOPs (the reference's DSV_GOP_INF) and ABR at
+    # gop 0 run on the sequential encoder, as in the JAX CLI
+    par_rc = rc_mode == C.RATE_CONTROL_CRF or gop > 0
+    use_par = bool(_get(params, "gopar")) and gop <= 4096 and par_rc
+    if use_par and _get(params, "gopabr"):
         return _not_ported("-gopabr1 (GOP-granular ABR)")
     if _get(params, "effort"):
         return _not_ported("-effort > 0")
@@ -244,7 +247,8 @@ def encode_main(argv, device="cuda") -> int:
     nencoded = 0
 
     def frames(f):
-        # read from disk frame by frame; the encoder takes a GOP at a time
+        # read from disk frame by frame; the GOP-parallel encoder takes a
+        # GOP at a time, the sequential one a frame
         nonlocal frno, nencoded
         while maxframe <= 0 or frno < maxframe:
             planes = read_frame(f, frno, w, h, subsamp)
@@ -256,9 +260,13 @@ def encode_main(argv, device="cuda") -> int:
             nencoded += 1
             yield planes
 
-    from .parallel import encode_stream_gops
     with _profile(opts["prof"]), open(opts["inp"], "rb") as f:
-        out = encode_stream_gops(frames(f), meta, cfg, device)
+        if use_par:
+            out = encode_stream_gops(frames(f), meta, cfg, device)
+        else:
+            enc = Encoder(meta, cfg, device)
+            enc.start()
+            out = enc.encode_stream(frames(f))
     if opts["v"] and nencoded:
         fps = (meta.fps_num + meta.fps_den // 2) // meta.fps_den
         bpf = len(out) * 8 // nencoded
@@ -279,17 +287,23 @@ def decode_main(argv, device="cuda") -> int:
         print("inp or out was not specified!")
         _usage(params, "d")
         return 1
-    if _get(params, "drawinfo"):
-        return _not_ported("-drawinfo (the sequential decoder)")
     to420 = bool(_get(params, "out420p"))
+    drawinfo = _get(params, "drawinfo")
     with open(opts["inp"], "rb") as f:
         stream = f.read()
-    from .parallel import iter_decode_gops
-    meta_box = {}
+    if drawinfo:
+        # the overlay needs each picture's block data: the sequential path
+        dec = Decoder(draw_info=drawinfo, device=device)
+        decoded = dec.decode_stream(stream)
+        get_meta = dec.get_metadata
+    else:
+        # streaming: the metadata is in meta_box before the first frame
+        meta_box = {}
+        decoded = iter_decode_gops(stream, device, meta_box=meta_box)
+        get_meta = lambda: meta_box["meta"]  # noqa: E731
     with _profile(opts["prof"]), open(opts["out"], "wb") as f:
-        for fno, planes in iter_decode_gops(stream, device,
-                                            meta_box=meta_box):
-            subsamp = meta_box["meta"].subsamp
+        for fno, planes in decoded:
+            subsamp = get_meta().subsamp
             if to420 and subsamp != C.SUBSAMP_420:
                 y, u, v = planes
                 if subsamp == C.SUBSAMP_444:

@@ -1,11 +1,15 @@
-"""Encoder building blocks (mirror of parts of dsv1_tpu/models/encoder.py).
+"""The encoder (mirror of dsv1_tpu/models/encoder.py).
 
 `make_prep` turns input planes into the padded image, the luma pyramid
 and the smallest level's average luma (for scene-change detection);
 `make_encode_core_traced` runs one frame's prediction/residual, forward
-transform, quantization with in-loop write-back and recon for all three
-planes (encode_picture core, dsv_encoder.c:505-526); `pack_picture`
-assembles the picture packet on the host (native/dsvbits.cpp).
+transform, quantization with in-loop write-back and (optionally) recon
+for all three planes (encode_picture core, dsv_encoder.c:505-526);
+`pack_picture` assembles the picture packet on the host
+(native/dsvbits.cpp). `Encoder` is the sequential encoder: one frame per
+call, the GOP, scene-change, rate and stability decisions on the host in
+the JAX package's order, the per-pixel work on the device with the
+port's kernels at batch 1 (HME, MC, Haar).
 """
 
 from dataclasses import dataclass
@@ -13,15 +17,28 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import bits
-from ..constants import (FOURCC, MAX_BLOCK_SIZE, MAX_PYRAMID_LEVELS,
-                         MAX_QP_BITS, MAX_QUALITY, MIN_BLOCK_SIZE,
-                         RATE_CONTROL_CRF, VERSION_MINOR, make_pt,
-                         quality_percent, round_pow2, round_shift)
+from ..constants import (FOURCC, GOP_INTRA, MAX_BLOCK_SIZE,
+                         MAX_PYRAMID_LEVELS, MAX_QP_BITS, MAX_QUALITY,
+                         MIN_BLOCK_SIZE, MODE_INTER, BPF_RESET,
+                         RATE_CONTROL_CRF, VERSION_MINOR, div_round,
+                         make_pt, quality_percent, quant_of_quality,
+                         round_pow2, round_shift)
 
+from ..device import resolve
 from ..ops import bmc, frame as fr, hzcc, sbt
 from ..ops.cint import lb2
+from ..ops.hme import hme_batch
+from ..state import encoder_tensors
+from .bitstream import (encode_eos_packet, encode_metadata_packet,
+                        set_link_offsets)
+from .metadata import Metadata
+
+MV_KEYS = ("mode", "mvx", "mvy", "submask", "lo_tex", "lo_var",
+           "high_detail")
+MOTION_KEYS = ("mode", "mvx", "mvy", "submask")
 
 
 def size4dim(dim: int) -> int:
@@ -44,6 +61,18 @@ def auto_pyramid_levels(w: int, h: int, nbh: int, nbv: int) -> int:
     while (1 << lvls) > maxdim:
         lvls -= 1
     return max(3, min(lvls, MAX_PYRAMID_LEVELS))
+
+
+def block_geometry(w: int, h: int):
+    """(blk_w, blk_h, nbh, nbv) of a frame (dsv_encoder.c:556-572)."""
+    blk_w = max(MIN_BLOCK_SIZE, min(size4dim(w) & ~7, MAX_BLOCK_SIZE))
+    blk_h = max(MIN_BLOCK_SIZE, min(size4dim(h) & ~7, MAX_BLOCK_SIZE))
+    return blk_w, blk_h, div_round(w, blk_w), div_round(h, blk_h)
+
+
+def crf_quant(quality: int) -> int:
+    """quality2quant CRF tail (dsv_encoder.c:165)."""
+    return int(quant_of_quality(quality))
 
 
 @dataclass
@@ -81,7 +110,11 @@ def pyr_layouts(subsamp: int, w: int, h: int, levels: int):
 def make_prep(subsamp: int, w: int, h: int, levels: int):
     """f(planes) -> (images per pyramid level, smallest-level average
     luma). planes: (y, u, v) with any leading batch dims; images are
-    (..., flat) u8 (level 0 the full frame)."""
+    (..., flat) u8 (level 0 the full frame).
+
+    At levels 0 (gop 0) the average is the full frame's, where the JAX
+    package returns 0: only scene-change detection reads it, and gop 0
+    never runs that."""
     layouts = pyr_layouts(subsamp, w, h, levels)
 
     def f(planes):
@@ -112,12 +145,15 @@ def coef_geometry(subsamp: int, w: int, h: int, nbh: int, nbv: int):
 
 
 def make_encode_core_traced(subsamp: int, w: int, h: int, blk_w: int,
-                            blk_h: int, nbh: int, nbv: int):
+                            blk_h: int, nbh: int, nbv: int,
+                            want_recon: bool = True):
     """f(input_img, ref_recon_img, is_p, quant, stable_blocks, modes, mvx,
     mvy, submask) -> (qvals per plane, dcs per plane, recon image).
 
     is_p is a python bool (the frame type is known on the host); the
-    prediction is built only for P frames."""
+    prediction is built only for P frames. Without `want_recon` the
+    inverse transform and the residual add are skipped and the recon
+    image is None (gop 0: no frame is a reference)."""
     layout, coef_dims, tables = coef_geometry(subsamp, w, h, nbh, nbv)
 
     def f(input_img, ref_recon_img, is_p: bool, quant: int, stable_blocks,
@@ -148,14 +184,25 @@ def make_encode_core_traced(subsamp: int, w: int, h: int, blk_w: int,
                                             stable_blocks, tables[c])
             qvals.append(qv)
             dcs.append(coefs[0, 0])
+            if not want_recon:
+                continue
             rp = sbt.coefs_to_plane(
                 sbt.inv_sbt(wb, quant, is_p, is_luma=(c == 0)))[:p.h, :p.w]
             if is_p:
                 rp = bmc.add_residual(pred, rp)
             recon_planes.append(rp)
-        return qvals, dcs, fr.image_from_planes(layout, recon_planes)
+        recon = (fr.image_from_planes(layout, recon_planes) if want_recon
+                 else None)
+        return qvals, dcs, recon
 
     return f
+
+
+@lru_cache(maxsize=16)
+def build_encode_core(subsamp: int, w: int, h: int, want_recon: bool):
+    """The encode core for one geometry (cached)."""
+    return make_encode_core_traced(subsamp, w, h, *block_geometry(w, h),
+                                   want_recon)
 
 
 def pack_picture(fnum: int, blk_w: int, blk_h: int, stable: np.ndarray,
@@ -176,3 +223,362 @@ def pack_picture(fnum: int, blk_w: int, blk_h: int, stable: np.ndarray,
         mv["mvy"].reshape(-1) if has_ref else None,
         mv["submask"].reshape(-1) if has_ref else None,
         quant, MAX_QP_BITS, planes)
+
+
+def _wrap16(x):
+    """int16 two's-complement wrap on int32 values (the reference keeps
+    the accumulators as int16, dsv_encoder.h:101-106)."""
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _stable_update(stability, refresh_ctr: int, is_p: bool, mv,
+                   stable_refresh: int):
+    """Stability accumulator logic (encode_stable_blocks,
+    dsv_encoder.c:329-400) on an int32 (nblk, 2) tensor.
+
+    Returns (stability', refresh_ctr', stable_blocks u8: bit0 stable,
+    bit1 intra). mv is the frame's motion dict (ignored for I frames)."""
+    if refresh_ctr >= stable_refresh:
+        refresh_ctr = 0
+        stability = torch.zeros_like(stability)
+    avgdiv = max(refresh_ctr, 1)
+
+    def avg(s):
+        return torch.sign(s) * torch.div(s.abs(), avgdiv,
+                                         rounding_mode="floor")
+
+    sx0, sy0 = stability[:, 0], stability[:, 1]
+    if is_p:
+        inter = mv["mode"].reshape(-1) == MODE_INTER
+        sxp = _wrap16(torch.where(
+            inter, sx0 + (mv["mvx"].reshape(-1).to(torch.int32).abs() >> 2),
+            sx0))
+        syp = _wrap16(torch.where(
+            inter, sy0 + (mv["mvy"].reshape(-1).to(torch.int32).abs() >> 2),
+            sy0))
+        lo = (mv["lo_tex"].reshape(-1) != 0) | (mv["lo_var"].reshape(-1) != 0)
+        stable = (mv["high_detail"].reshape(-1) != 0) \
+            | ((avg(sxp) == 0) & (avg(syp) == 0) & ~lo)
+        stable &= inter
+        intra_blk = ~inter
+        stability = torch.stack([torch.where(lo, 0x3FFF, sxp),
+                                 torch.where(lo, 0x3FFF, syp)], dim=1) \
+            .to(torch.int32)
+    else:
+        stable = (avg(sx0) == 0) & (avg(sy0) == 0)
+        intra_blk = torch.zeros_like(stable)
+    stable_blocks = stable.to(torch.uint8) | (intra_blk.to(torch.uint8) << 1)
+    return stability, refresh_ctr, stable_blocks
+
+
+def quality2quant_abr(st, cfg, meta, is_p: bool, forced_intra: bool) -> int:
+    """ABR branch of quality2quant (dsv_encoder.c:70-168) on Python ints
+    over mutable rate-control state `st` (attrs: rc_quant, bpf_avg,
+    avg_P_frame_q, last_P_frame_over, back_into_range), as the JAX
+    package's sequential encoder runs it: no int32 wrap, unlike the
+    device law of ops/rc.py. Returns the chosen quality and updates
+    st.rc_quant."""
+    q = st.rc_quant
+    fps = (meta.fps_num << 5) // meta.fps_den or 1
+    needed_bpf = ((cfg.bitrate << 5) // fps) >> 3
+    bpf = st.bpf_avg or needed_bpf
+    dir_ = -1 if (bpf - needed_bpf) > 0 else 1
+    delta = (abs(bpf - needed_bpf) << 9) // needed_bpf
+    if dir_ == 1:
+        delta *= 2
+    nudged = False
+    if cfg.rc_high_motion_nudge:
+        if is_p:
+            if st.last_P_frame_over:
+                delta = (delta + 1) * 2
+                dir_ = -1
+                nudged = True
+            elif st.back_into_range:
+                delta = (delta + 1) * 2
+                dir_ = 1
+                nudged = True
+        elif st.back_into_range:
+            delta = (delta + 1) * 2
+            dir_ = 1
+            nudged = True
+    delta = (q * delta) >> 9
+    cfg.max_q_step = max(1, min(cfg.max_q_step, MAX_QUALITY))
+    cap = cfg.max_q_step * 16 if nudged else cfg.max_q_step
+    delta = min(delta, cap)
+    q += delta * dir_
+    low_p = st.avg_P_frame_q - quality_percent(4)
+    low_p = max(cfg.min_quality, min(low_p, cfg.max_quality))
+    minq = low_p if is_p else cfg.min_I_frame_quality
+    if forced_intra:
+        if q < quality_percent(60):
+            q += quality_percent(15)
+        elif q < quality_percent(70):
+            q += quality_percent(8)
+        elif q < quality_percent(75):
+            q += quality_percent(3)
+        q = max(0, min(q, cfg.max_quality - quality_percent(5)))
+    q = max(minq, min(q, cfg.max_quality))
+    q = max(0, min(q, MAX_QUALITY))
+    st.rc_quant = q
+    return q
+
+
+def rc_stats_update_abr(st, cfg, meta, is_p: bool, used_quality: int,
+                        pic_len: int):
+    """ABR statistics update (dsv_enc, dsv_encoder.c:816-848) on Python
+    ints over mutable state `st` (attrs: bpf_total, bpf_reset, bpf_avg,
+    total_P_frame_q, avg_P_frame_q, last_P_frame_over,
+    back_into_range)."""
+    st.bpf_total += pic_len
+    st.bpf_reset += 1
+    if is_p:
+        st.total_P_frame_q += used_quality
+        st.avg_P_frame_q = st.total_P_frame_q // st.bpf_reset
+        fps = (meta.fps_num << 5) // meta.fps_den or 1
+        needed_bpf = ((cfg.bitrate << 5) // fps) >> 3
+        went_under = pic_len < (needed_bpf * 3 // 4)
+        needed_bpf = needed_bpf * 7 // 8
+        went_over = pic_len > needed_bpf
+        st.back_into_range = int(st.last_P_frame_over and went_under)
+        st.last_P_frame_over = int(went_over)
+    else:
+        st.last_P_frame_over = 0
+        st.back_into_range = 0
+    st.bpf_avg = st.bpf_total // st.bpf_reset
+    if st.bpf_reset >= BPF_RESET:
+        st.bpf_total = st.bpf_avg
+        st.total_P_frame_q //= st.bpf_reset
+        st.bpf_reset = 1
+
+
+def split_row(row, sizes):
+    """Consecutive pieces of a 1-D array, of the given sizes."""
+    out, off = [], 0
+    for s in sizes:
+        out.append(row[off:off + s])
+        off += s
+    return out
+
+
+class Encoder:
+    """The sequential encoder (dsv1_tpu/models/encoder.py Encoder; the
+    reference API, dsv_encoder.h:112-121): `start`, `encode` one frame
+    at a time, `force_metadata`, `end_of_stream`, checkpoint and resume.
+
+    The decisions run on the host in the JAX package's order; the
+    per-pixel work runs on `device` with the port's kernels at batch 1.
+    Per frame the host reads the device at most twice: after prep + HME
+    (average luma, intra %, the motion fields) and after the core (the
+    quantized planes, DCs and stable blocks). `state_dict` holds host
+    data with the JAX package's keys and dtypes, so a JAX encoder's state
+    resumes here and the other way round."""
+
+    _STATE_SCALARS = (
+        "rc_quant", "bpf_total", "bpf_reset", "bpf_avg", "total_P_frame_q",
+        "avg_P_frame_q", "last_P_frame_over", "back_into_range", "next_fnum",
+        "prev_gop", "prev_avg_luma", "refresh_ctr", "prev_link",
+        "_force_meta", "_levels")
+
+    def __init__(self, meta: Metadata, config: EncoderConfig | None = None,
+                 device="cuda"):
+        self.device = resolve(device)
+        self.meta = meta
+        self.cfg = config or EncoderConfig()
+        if self.cfg.effort:
+            raise NotImplementedError("effort > 0 is not ported yet")
+        # dynamic state (dsv_encoder.h:83-110)
+        self.rc_quant = 0
+        self.bpf_total = 0
+        self.bpf_reset = 0
+        self.bpf_avg = 0
+        self.total_P_frame_q = 0
+        self.avg_P_frame_q = 0
+        self.last_P_frame_over = 0
+        self.back_into_range = 0
+        self.next_fnum = 0
+        self.prev_gop = -1
+        self.prev_avg_luma = 0
+        self.refresh_ctr = 0
+        self.prev_link = 0
+        self._force_meta = False
+        self._levels = self.cfg.pyramid_levels
+        self.stability = None       # (nblk, 2) int32 tensor, int16 values
+        self.stable_blocks = None   # (nblk,) u8, the last frame's
+        self._ref_recon = None      # flat image on the device (MC reference)
+        self._ref_pyr = None        # images per level (HME reference)
+        self.blk_w, self.blk_h, self.nbh, self.nbv = block_geometry(
+            meta.width, meta.height)
+
+    def start(self):
+        """dsv_enc_start (dsv_encoder.c:724-734)."""
+        c = self.cfg
+        c.quality = max(0, min(c.quality, MAX_QUALITY))
+        if c.rc_mode != RATE_CONTROL_CRF:
+            self.rc_quant = c.quality
+            self.avg_P_frame_q = c.quality * 4 // 5
+        self._force_meta = True
+
+    def force_metadata(self):
+        """Make the next frame a GOP start: its picture is intra and a
+        metadata packet precedes it (dsv_enc_force_metadata,
+        dsv_encoder.c:760-763)."""
+        self._force_meta = True
+
+    def _quality2quant(self, is_p: bool, forced_intra: bool) -> int:
+        """quality2quant (dsv_encoder.c:70-168)."""
+        c = self.cfg
+        if c.rc_mode != RATE_CONTROL_CRF:
+            q = quality2quant_abr(self, c, self.meta, is_p, forced_intra)
+        else:
+            q = c.quality
+            self.rc_quant = q
+        return crf_quant(q)
+
+    def _motion(self, imgs, al, levels: int, calls):
+        """HME of this frame's pyramid against the previous frame's input
+        pyramid at B = 1, and the frame's first host read: (average luma,
+        intra %, host motion fields, device motion dict)."""
+        layouts = pyr_layouts(self.meta.subsamp, self.meta.width,
+                              self.meta.height, levels)
+        # [None] views keep each image's start, so the planes stay on the
+        # 4-byte words the kernels load
+        mv = hme_batch([a[None] for a in imgs],
+                       [a[None] for a in self._ref_pyr], layouts,
+                       self.blk_w, self.blk_h, self.nbh, self.nbv,
+                       self.meta.subsamp, levels, calls)
+        nblk = self.nbh * self.nbv
+        host = torch.cat([al.reshape(1).to(torch.int32),
+                          mv["intra_pct"].reshape(1).to(torch.int32)]
+                         + [mv[k].reshape(-1).to(torch.int32)
+                            for k in MOTION_KEYS]).cpu().numpy()
+        mv_h = dict(zip(MOTION_KEYS, split_row(host[2:], [nblk] * 4)))
+        return int(host[0]), int(host[1]), mv_h, mv
+
+    def encode(self, planes, calls: list | None = None):
+        """Encode one (y, u, v) frame; returns its packets (dsv_enc).
+        `calls` collects the HME kernels' arguments (ops/hme.py
+        hme_batch)."""
+        meta, c, dev = self.meta, self.cfg, self.device
+        w, h, subsamp = meta.width, meta.height, meta.subsamp
+        nblk = self.nbh * self.nbv
+        fnum = self.next_fnum
+        self.next_fnum += 1
+        if self._levels == 0:
+            self._levels = auto_pyramid_levels(w, h, self.nbh, self.nbv)
+        intra_only = c.gop == GOP_INTRA
+        levels = 0 if intra_only else self._levels
+        gop_start = self._force_meta or (self.prev_gop + c.gop) <= fnum
+        if gop_start:
+            self.prev_gop = fnum
+            self._force_meta = False
+
+        with record_function("seq.motion"):
+            packed = torch.from_numpy(fr.np_pack_planes(planes)).to(dev)
+            imgs, al_d = make_prep(subsamp, w, h, levels)(
+                fr.split_packed_planes(packed, subsamp, w, h))
+            mv = mv_h = None
+            al = intra_pct = 0
+            if not intra_only and not gop_start and self._ref_pyr is not None:
+                # HME runs before the SCD verdict is known; on a scene cut
+                # its fields are dropped (as in the JAX package)
+                al, intra_pct, mv_h, mv = self._motion(imgs, al_d, levels,
+                                                       calls)
+            elif not intra_only and c.do_scd:
+                al = int(al_d)
+
+        if intra_only:
+            is_ref = has_ref = forced_intra = False
+        else:
+            is_ref, has_ref, forced_intra = True, not gop_start, False
+            if c.do_scd:
+                # on a GOP-start frame too: forced_intra boosts ABR
+                if abs(self.prev_avg_luma - al) > c.scene_change_delta:
+                    has_ref = False
+                    forced_intra = True
+                self.prev_avg_luma = al
+        if has_ref and intra_pct > c.intra_pct_thresh:
+            has_ref = False
+            forced_intra = True
+
+        quant = self._quality2quant(has_ref, forced_intra)
+        with record_function("seq.core"):
+            if self.stability is None:
+                self.stability = torch.zeros((nblk, 2), dtype=torch.int32,
+                                             device=dev)
+            self.stability, self.refresh_ctr, stable = _stable_update(
+                self.stability, self.refresh_ctr, has_ref, mv,
+                c.stable_refresh)
+            want_recon = is_ref   # no frame of gop 0 is a reference
+            core = build_encode_core(subsamp, w, h, want_recon)
+            margs = (tuple(mv[k][0] for k in MOTION_KEYS) if has_ref
+                     else (None,) * 4)
+            qvals, dcs, recon = core(imgs[0], self._ref_recon, has_ref,
+                                     quant, stable, *margs)
+            host = torch.cat([q.reshape(-1) for q in qvals]
+                             + [torch.stack(dcs).reshape(-1),
+                                stable.to(torch.int32)]).cpu().numpy()
+            *qv, dc, stable_h = split_row(host, [q.numel() for q in qvals]
+                                          + [3, nblk])
+            self.stable_blocks = stable_h.astype(np.uint8)
+        if want_recon:
+            self._ref_recon = recon
+            self._ref_pyr = imgs
+
+        with record_function("seq.pack"):
+            picture = pack_picture(fnum, self.blk_w, self.blk_h,
+                                   self.stable_blocks, has_ref, is_ref,
+                                   mv_h if has_ref else None, quant, qv, dc,
+                                   self.nbh, self.nbv)
+        packets = [encode_metadata_packet(meta)] if gop_start else []
+        packets.append(picture)
+        if has_ref:
+            self.refresh_ctr += 1
+        if c.rc_mode != RATE_CONTROL_CRF:
+            rc_stats_update_abr(self, c, meta, has_ref, self.rc_quant,
+                                len(picture))
+        set_link_offsets(picture, self.prev_link, len(picture))
+        self.prev_link = len(picture)
+        return packets
+
+    def end_of_stream(self) -> bytearray:
+        """dsv_enc_end_of_stream (dsv_encoder.c:766-778)."""
+        pkt = encode_eos_packet(self.prev_link)
+        self.prev_link = 0
+        return pkt
+
+    def state_dict(self) -> dict:
+        """The inter-frame state as host data, with the JAX package's
+        keys and dtypes: the DSV_ENCODER scalars, `stability` int16
+        (nblk, 2), `stable_blocks` u8, `ref_recon` and `ref_pyr` as flat
+        u8 images in the shared frame layout (ops/frame.py)."""
+        s = {k: getattr(self, k) for k in self._STATE_SCALARS}
+        s["stability"] = (None if self.stability is None else
+                          self.stability.cpu().numpy().astype(np.int16))
+        s["stable_blocks"] = (None if self.stable_blocks is None
+                              else self.stable_blocks.copy())
+        s["ref_recon"] = (None if self._ref_recon is None
+                          else self._ref_recon.cpu().numpy().copy())
+        s["ref_pyr"] = (None if self._ref_pyr is None
+                        else [x.cpu().numpy().copy() for x in self._ref_pyr])
+        return s
+
+    def load_state_dict(self, s: dict):
+        """Resume from a state_dict() of this class or of the JAX
+        package's Encoder; the continuation is byte-identical to an
+        uninterrupted encode."""
+        for k in self._STATE_SCALARS:
+            setattr(self, k, s[k])
+        self.stable_blocks = (None if s["stable_blocks"] is None
+                              else np.array(s["stable_blocks"], np.uint8))
+        self.stability, self._ref_recon, self._ref_pyr = encoder_tensors(
+            s, self.device)
+
+    def encode_stream(self, frames) -> bytes:
+        """Encode an iterable of (y, u, v) frames into a full .dsv
+        stream."""
+        out = bytearray()
+        for planes in frames:
+            for pkt in self.encode(planes):
+                out += pkt
+        out += self.end_of_stream()
+        return bytes(out)

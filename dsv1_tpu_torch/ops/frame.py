@@ -13,6 +13,7 @@ dimension is the flat image (or the plane's columns).
 from dataclasses import dataclass
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from ..constants import (FRAME_BORDER, format_h_shift, format_v_shift,
@@ -182,3 +183,10 @@ def split_packed_planes(packed, subsamp: int, w: int, h: int):
     return (packed[..., :ysz].reshape(lead + (h, w)),
             packed[..., ysz:ysz + csz].reshape(lead + (ch, cw)),
             packed[..., ysz + csz:ysz + 2 * csz].reshape(lead + (ch, cw)))
+
+
+def np_pack_planes(planes) -> np.ndarray:
+    """Host side: (y, u, v) -> one (fsz,) uint8 planar byte array (one
+    host-to-device copy per frame)."""
+    return np.concatenate([np.asarray(p, np.uint8).ravel()
+                           for p in planes[:3]])

@@ -11,7 +11,8 @@ motion compensation and the residual add, with the reference image
 replaced only by is_ref pictures (dsv_decoder.c:422-456). The quant
 is read per picture, so ABR streams (a quant per picture) decode like
 CRF ones. `iter_decode_gops` yields each chain's frames as soon as the
-chain is decoded, one device fetch per chain.
+chain is decoded, one device fetch per chain; a stream whose block size
+changes mid-stream goes to the sequential `models.decoder.Decoder`.
 """
 
 from functools import lru_cache
@@ -28,7 +29,7 @@ from ..models.bitstream import (iter_packets, parse_metadata,
 from ..models.metadata import Metadata
 
 from ..device import resolve
-from ..models.encoder import coef_geometry
+from ..models.encoder import coef_geometry, split_row
 from ..ops import bmc, frame as fr, hzcc, sbt
 
 
@@ -74,9 +75,9 @@ class GopDecoder:
         new_img = fr.image_from_planes(self.layout, outs)
         return (new_img if pic["is_ref"] else ref_img), outs
 
-    def decode_chain(self, pics):
-        """Decode one chain of parsed pictures; returns [(y, u, v)] as
-        numpy arrays, one fetch per chain."""
+    def qdense(self, pics):
+        """(L, N) int32 quantized grids of L parsed pictures, one scatter
+        on the device."""
         dev = self.device
         L, N = len(pics), self.N
         sidx, sval = [], []
@@ -88,24 +89,28 @@ class GopDecoder:
         qdense = torch.zeros(L * N, dtype=torch.int32, device=dev)
         qdense[torch.from_numpy(np.concatenate(sidx)).to(dev)] = \
             torch.from_numpy(np.concatenate(sval)).to(dev)
-        qdense = qdense.reshape(L, N)
-        ref = fr.alloc_image(self.layout, device=dev)
+        return qdense.reshape(L, N)
+
+    def planes_to_host(self, planes):
+        """[(y, u, v) device planes] of L pictures -> [[y, u, v]] numpy
+        planes, one fetch."""
+        host = torch.stack([torch.cat([o.reshape(-1) for o in outs])
+                            for outs in planes]).cpu().numpy()
+        ps = self.layout.planes
+        return [[a.reshape(p.h, p.w) for a, p in
+                 zip(split_row(row, [p.h * p.w for p in ps]), ps)]
+                for row in host]
+
+    def decode_chain(self, pics):
+        """Decode one chain of parsed pictures; returns [(y, u, v)] as
+        numpy arrays, one fetch per chain."""
+        qdense = self.qdense(pics)
+        ref = fr.alloc_image(self.layout, device=self.device)
         planes = []
         for k, pic in enumerate(pics):
             ref, outs = self.step(ref, qdense[k], pic)
-            planes.append(torch.cat([o.reshape(-1) for o in outs]))
-        host = torch.stack(planes).cpu().numpy()
-        sizes = [self.layout.planes[c].h * self.layout.planes[c].w
-                 for c in range(3)]
-        res = []
-        for k in range(L):
-            row, off, pl = host[k], 0, []
-            for c in range(3):
-                p = self.layout.planes[c]
-                pl.append(row[off:off + sizes[c]].reshape(p.h, p.w))
-                off += sizes[c]
-            res.append(pl)
-        return res
+            planes.append(outs)
+        return self.planes_to_host(planes)
 
 
 @lru_cache(maxsize=8)
@@ -166,9 +171,6 @@ def _plan_stream(frames):
             chains.append([i])
         else:
             chains[-1].append(i)
-    if len({(f["blk_w"], f["blk_h"]) for f in frames}) != 1:
-        raise NotImplementedError("mid-stream block-size change needs the "
-                                  "sequential decoder, not ported")
     return chains
 
 
@@ -197,6 +199,12 @@ def iter_decode_gops(stream: bytes, device="cuda", *,
     if meta_box is not None:
         meta_box["meta"] = meta
     if meta is None or not frames:
+        return
+    if len({(f["blk_w"], f["blk_h"]) for f in frames}) != 1:
+        # a block size that changes mid-stream: the sequential decoder
+        # (as the JAX package falls back to its own)
+        from ..models.decoder import Decoder
+        yield from Decoder(device=dev).decode_stream(stream)
         return
     chains = _plan_stream(frames)
     dec = build_gop_decoder(meta.subsamp, meta.width, meta.height,

@@ -11,7 +11,9 @@ runs frame by frame on the device, and the host packs each picture.
 GOPs are encoded one after another, so the stability accumulators,
 refresh counter and rate state carried out of one GOP are exactly the
 state the reference holds entering the next. Frames are read GOP by
-GOP: a long or large input is never held whole.
+GOP: a long or large input is never held whole. At gop 0 (intra only)
+every frame is its own GOP with no HME and no recon, and frames go
+through in chunks (`_encode_intra`).
 
 Under ABR the reference's per-frame law (ops/rc.py) picks each frame's
 quality from the exact byte size of the picture before it, which
@@ -36,81 +38,20 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..constants import (GOP_INTRA, MAX_BLOCK_SIZE, MAX_QP_BITS,
-                         MIN_BLOCK_SIZE, MODE_INTER, RATE_CONTROL_CRF,
-                         div_round, quant_of_quality)
+from ..constants import GOP_INTRA, MAX_QP_BITS, RATE_CONTROL_CRF
 from ..models.bitstream import (encode_eos_packet, encode_metadata_packet,
                                 set_link_offsets)
 from ..models.metadata import Metadata
 
 from ..device import resolve
-from ..models.encoder import (EncoderConfig, auto_pyramid_levels,
+from ..models.encoder import (MOTION_KEYS, MV_KEYS, EncoderConfig,
+                              _stable_update, auto_pyramid_levels,
+                              block_geometry, build_encode_core, crf_quant,
                               make_encode_core_traced, make_prep,
-                              pack_picture, pyr_layouts, size4dim)
+                              pack_picture, pyr_layouts, split_row)
 from ..ops import frame as fr, piclen, rc
 from ..ops.hme import hme_batch
 from ..state import EncoderState
-
-MV_KEYS = ("mode", "mvx", "mvy", "submask", "lo_tex", "lo_var",
-           "high_detail")
-MOTION_KEYS = ("mode", "mvx", "mvy", "submask")
-
-
-def crf_quant(quality: int) -> int:
-    """quality2quant CRF tail (dsv_encoder.c:165)."""
-    return int(quant_of_quality(quality))
-
-
-def block_geometry(w: int, h: int):
-    blk_w = max(MIN_BLOCK_SIZE, min(size4dim(w) & ~7, MAX_BLOCK_SIZE))
-    blk_h = max(MIN_BLOCK_SIZE, min(size4dim(h) & ~7, MAX_BLOCK_SIZE))
-    return blk_w, blk_h, div_round(w, blk_w), div_round(h, blk_h)
-
-
-def _wrap16(x):
-    """int16 two's-complement wrap on int32 values (the reference keeps
-    the accumulators as int16, dsv_encoder.h:101-106)."""
-    return ((x + 0x8000) & 0xFFFF) - 0x8000
-
-
-def _stable_update(stability, refresh_ctr: int, is_p: bool, mv,
-                   stable_refresh: int):
-    """Stability accumulator logic (encode_stable_blocks,
-    dsv_encoder.c:329-400) on an int32 (nblk, 2) tensor.
-
-    Returns (stability', refresh_ctr', stable_blocks u8: bit0 stable,
-    bit1 intra). mv is the frame's motion dict (ignored for I frames)."""
-    if refresh_ctr >= stable_refresh:
-        refresh_ctr = 0
-        stability = torch.zeros_like(stability)
-    avgdiv = max(refresh_ctr, 1)
-
-    def avg(s):
-        return torch.sign(s) * torch.div(s.abs(), avgdiv,
-                                         rounding_mode="floor")
-
-    sx0, sy0 = stability[:, 0], stability[:, 1]
-    if is_p:
-        inter = mv["mode"].reshape(-1) == MODE_INTER
-        sxp = _wrap16(torch.where(
-            inter, sx0 + (mv["mvx"].reshape(-1).to(torch.int32).abs() >> 2),
-            sx0))
-        syp = _wrap16(torch.where(
-            inter, sy0 + (mv["mvy"].reshape(-1).to(torch.int32).abs() >> 2),
-            sy0))
-        lo = (mv["lo_tex"].reshape(-1) != 0) | (mv["lo_var"].reshape(-1) != 0)
-        stable = (mv["high_detail"].reshape(-1) != 0) \
-            | ((avg(sxp) == 0) & (avg(syp) == 0) & ~lo)
-        stable &= inter
-        intra_blk = ~inter
-        stability = torch.stack([torch.where(lo, 0x3FFF, sxp),
-                                 torch.where(lo, 0x3FFF, syp)], dim=1) \
-            .to(torch.int32)
-    else:
-        stable = (avg(sx0) == 0) & (avg(sy0) == 0)
-        intra_blk = torch.zeros_like(stable)
-    stable_blocks = stable.to(torch.uint8) | (intra_blk.to(torch.uint8) << 1)
-    return stability, refresh_ctr, stable_blocks
 
 
 class GopEncoder:
@@ -207,14 +148,12 @@ class GopEncoder:
         host = torch.stack(dev_outs).cpu().numpy()   # one fetch per GOP
         out = []
         for i, (is_p, mv_i, quant, sizes) in enumerate(frames):
-            row, off, qv = host[i], 0, []
-            for s in sizes:
-                qv.append(row[off:off + s])
-                off += s
+            *qv, dc, stable = split_row(host[i],
+                                        sizes + [3, self.nbh * self.nbv])
             mvh = ({k: mv_i[k].cpu().numpy() for k in MOTION_KEYS}
                    if is_p else None)
-            out.append({"qvals": qv, "dc": row[off:off + 3],
-                        "stable": row[off + 3:].astype(np.uint8),
+            out.append({"qvals": qv, "dc": dc,
+                        "stable": stable.astype(np.uint8),
                         "has_ref": is_p, "mv": mvh, "quant": quant})
         return out
 
@@ -231,38 +170,88 @@ def build_gop_encoder(subsamp: int, w: int, h: int, G: int, quality: int,
 
 def _packed_gops(frames, G: int):
     """(y, u, v) frames from any iterable -> (first frame number, (n, fsz)
-    u8 raw planar rows) per GOP of up to G frames, read as they come."""
+    u8 raw planar rows) per GOP (or chunk) of up to G frames, read as
+    they come."""
     it = iter(frames)
     g0 = 0
     while True:
         gop = list(islice(it, G))
         if not gop:
             return
-        yield g0, np.stack([np.concatenate(
-            [np.asarray(p, np.uint8).ravel() for p in f[:3]]) for f in gop])
+        yield g0, np.stack([fr.np_pack_planes(f) for f in gop])
         g0 += len(gop)
+
+
+def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev) -> bytes:
+    """gop 0 (the JAX package's build_intra_encoder and its gop-0 branch
+    of encode_stream_gops): every frame an intra, non-reference picture
+    after its own metadata packet; no HME, no recon, every block stable
+    (the zeroed accumulators make every block stable,
+    dsv_encoder.c:383-393). Frames go through in chunks, one device fetch
+    per chunk."""
+    w, h, subsamp = meta.width, meta.height, meta.subsamp
+    blk_w, blk_h, nbh, nbv = block_geometry(w, h)
+    quant = crf_quant(cfg.quality)
+    prep = make_prep(subsamp, w, h, 0)
+    core = build_encode_core(subsamp, w, h, False)
+    stable = torch.ones(nbh * nbv, dtype=torch.uint8, device=dev)
+    stable_h = np.ones(nbh * nbv, np.uint8)
+    chunk = max(1, min(64, (8 << 20) // max(w * h, 1)))
+    meta_pkt = bytes(encode_metadata_packet(meta))
+    out = bytearray()
+    prev_link = 0
+    for f0, rows in _packed_gops(frames, chunk):
+        with record_function("gop.upload"):
+            packed = torch.from_numpy(rows).to(dev)
+        with record_function("gop.intra_core"):
+            imgs, _al = prep(fr.split_packed_planes(packed, subsamp, w, h))
+            dev_outs = []
+            for img in imgs[0]:
+                qvals, dcs, _ = core(img, None, False, quant, stable,
+                                     None, None, None, None)
+                dev_outs.append(torch.cat([q.reshape(-1) for q in qvals]
+                                          + [torch.stack(dcs).reshape(-1)]))
+            sizes = [q.numel() for q in qvals] + [3]
+            host = torch.stack(dev_outs).cpu().numpy()   # one fetch a chunk
+        with record_function("gop.pack"):
+            for i, row in enumerate(host):
+                *qv, dc = split_row(row, sizes)
+                pic = pack_picture(f0 + i, blk_w, blk_h, stable_h, False,
+                                   False, None, quant, qv, dc, nbh, nbv)
+                set_link_offsets(pic, prev_link, len(pic))
+                prev_link = len(pic)
+                out.extend(meta_pkt)
+                out.extend(pic)
+    out.extend(encode_eos_packet(prev_link))
+    return bytes(out)
 
 
 def encode_stream_gops(frames, meta: Metadata,
                        cfg: EncoderConfig | None = None, device="cuda", *,
                        abr_mode: str = "exact") -> bytes:
     """Encode (y, u, v) uint8 frames (any iterable, read GOP by GOP) into
-    a full .dsv stream, GOP by GOP on `device`. CRF, or ABR with the
-    reference's per-frame law (abr_mode "exact"). Byte-identical to the
-    JAX package's encode_stream_gops for the same frames and config.
-    Raises NotImplementedError for what the port lacks: abr_mode "gop",
-    gop 0, gop > 4096 and effort > 0."""
+    a full .dsv stream, GOP by GOP on `device`. CRF (gop 0 included:
+    intra only), or ABR with the reference's per-frame law (abr_mode
+    "exact"). Byte-identical to the JAX package's encode_stream_gops for
+    the same frames and config. Raises the JAX package's ValueError for
+    ABR at gop 0 and for gop > 4096 (the sequential `Encoder` runs
+    those), NotImplementedError for abr_mode "gop" and effort > 0."""
     cfg = cfg or EncoderConfig()
     dev = resolve(device)
     abr = cfg.rc_mode != RATE_CONTROL_CRF
+    if abr and cfg.gop == GOP_INTRA:
+        raise ValueError("GOP-parallel ABR needs gop > 0; "
+                         "use models.encoder.Encoder")
+    if cfg.gop != GOP_INTRA and cfg.gop > 4096:
+        raise ValueError("GOP too long for the device-resident scan; "
+                         "use models.encoder.Encoder")
     if abr and abr_mode != "exact":
         raise NotImplementedError(f"abr_mode={abr_mode!r} (GOP-granular "
                                   "ABR) is not ported yet")
     if cfg.effort:
         raise NotImplementedError("effort > 0 is not ported yet")
-    if cfg.gop == GOP_INTRA or cfg.gop > 4096:
-        raise NotImplementedError("gop 0 and gop > 4096 (the sequential "
-                                  "encoder) are not ported yet")
+    if cfg.gop == GOP_INTRA:
+        return _encode_intra(frames, meta, cfg, dev)
     w, h, subsamp = meta.width, meta.height, meta.subsamp
     G = cfg.gop
     enc = build_gop_encoder(subsamp, w, h, G, cfg.quality, cfg.do_scd,

@@ -3,9 +3,11 @@
 The same argv through `dsv1_tpu.cli.main` and
 `dsv1_tpu_torch.cli.main(..., device="cpu")` must write the same .dsv
 and, decoded by each CLI, the same YUV: at the CLI defaults (per-frame
-ABR, auto bitrate, gop 12), with CRF (-rc_mode1), and 4:4:4 input
-decoded with -out420p1. Options the port does not run yet exit with
-code 2."""
+ABR, auto bitrate, gop 12), with CRF (-rc_mode1), 4:4:4 input decoded
+with -out420p1, and on the sequential paths: -gopar0, intra-only -gop0
+(CRF through the GOP-parallel encoder, ABR through the sequential
+Encoder), -gop5000 and the -drawinfo7 overlay decode. Options the port
+does not run yet (-gopabr1, -effort1) exit with code 2."""
 
 import pytest
 import torch
@@ -56,10 +58,18 @@ def test_cli_profile_trace(tmp_path):
         .read_text()
 
 
-@pytest.mark.parametrize("argv", [
-    ["e", "-gop0"], ["e", "-gop5000"], ["e", "-gopar0"], ["e", "-gopabr1"],
-    ["e", "-effort1"], ["d", "-drawinfo1"],
+@pytest.mark.parametrize("extra,dec_extra", [
+    (["-gopar0"], []),               # the sequential Encoder, ABR gop 12
+    (["-gop0", "-rc_mode1"], []),    # intra only, encode_stream_gops
+    (["-gop0"], []),                 # intra-only ABR: the Encoder
+    (["-gop5000"], []),              # an effectively infinite GOP
+    ([], ["-drawinfo7"]),            # the overlay: the sequential Decoder
 ])
+def test_cli_sequential_matches_jax(tmp_path, extra, dec_extra):
+    test_cli_matches_jax(tmp_path, 2, extra, dec_extra)
+
+
+@pytest.mark.parametrize("argv", [["e", "-gopabr1"], ["e", "-effort1"]])
 def test_cli_not_ported_exits(tmp_path, capsys, argv):
     (tmp_path / "in.yuv").write_bytes(b"")
     code = tcli.main([argv[0], f"-inp_{tmp_path}/in.yuv",

@@ -62,8 +62,10 @@ def test_encode_stream_matches_jax(w, h, subsamp, nframes, gop, cut_at,
 def test_encode_rejects_what_is_not_ported():
     frames = corpus.make_clip_frames(32, 32, SUBSAMP_420, 2, seed=1)
     meta = Metadata(32, 32, SUBSAMP_420)
-    for cfg in (dt.EncoderConfig(gop=0), dt.EncoderConfig(gop=4097)):
-        with pytest.raises(NotImplementedError, match="gop 0"):
+    # ABR at gop 0 and gop > 4096 belong to the sequential Encoder
+    for cfg in (dt.EncoderConfig(gop=0, rc_mode=dt.RATE_CONTROL_ABR),
+                dt.EncoderConfig(gop=4097)):
+        with pytest.raises(ValueError, match="use models.encoder.Encoder"):
             dt.encode_stream_gops(frames, meta, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="effort"):
         dt.encode_stream_gops(frames, meta, EncoderConfig(gop=2, effort=1),

@@ -4,10 +4,13 @@
 stream and decode of the smoke clips, written by tools/torch_golden.py:
 `cif` and `1080p` through `encode_stream_gops` (gop 12, qp 85 CRF, 24
 frames), `cif_cli` and `4k_cli` through the CLI at its defaults
-(per-frame ABR, auto bitrate). Here the CIF entries are regenerated from
-JAX on the CPU and checked against the file, and the port's CPU encode
-and decode (through `encode_stream_gops` or the CLI) are checked against
-it; the 1080p and 4K entries are checked the same way in the slow tier."""
+(per-frame ABR, auto bitrate), `1080p_seq_cli` (-gopar0, and its
+-drawinfo7 decode) and `1080p_gop0_cli` (-gop0 -rc_mode1) through the
+CLI's sequential and intra-only paths. Here the CIF entries are
+regenerated from JAX on the CPU and checked against the file, and the
+port's CPU encode and decode (through `encode_stream_gops` or the CLI)
+are checked against it, as is the port's intra-only 1080p CLI run; the
+other 1080p and 4K entries are checked the same way in the slow tier."""
 
 import os
 
@@ -51,8 +54,10 @@ def _check_port_cli(name, tmp_path):
     inp.write_bytes(yuv)
     assert cli.main(g.cli_encode_args(name, inp, dsv), device="cpu") == 0
     assert g.sha(dsv.read_bytes()) == gold["stream_sha256"]
-    assert cli.main(g.cli_decode_args(dsv, out), device="cpu") == 0
-    assert g.sha(out.read_bytes()) == gold["decode_sha256"]
+    for key, extra in {"decode_sha256": (), **g.CLIPS[name][5]}.items():
+        assert cli.main(g.cli_decode_args(dsv, out, extra),
+                        device="cpu") == 0
+        assert g.sha(out.read_bytes()) == gold[key]
 
 
 def test_cif_golden_matches_jax():
@@ -84,3 +89,22 @@ def test_port_1080p_matches_golden():
 @pytest.mark.slow
 def test_4k_cli_golden_matches_jax():
     _check_jax("4k_cli")
+
+
+def test_port_1080p_gop0_cli_matches_golden(tmp_path):
+    _check_port_cli("1080p_gop0_cli", tmp_path)
+
+
+@pytest.mark.slow
+def test_1080p_gop0_cli_golden_matches_jax():
+    _check_jax("1080p_gop0_cli")
+
+
+@pytest.mark.slow
+def test_1080p_seq_cli_golden_matches_jax():
+    _check_jax("1080p_seq_cli")
+
+
+@pytest.mark.slow
+def test_port_1080p_seq_cli_matches_golden(tmp_path):
+    _check_port_cli("1080p_seq_cli", tmp_path)

@@ -41,6 +41,11 @@ s = dt.encode_stream_gops(frames, dt.Metadata(w, h, dt.SUBSAMP_420),
                           device="cpu")
 meta, dec = dt.decode_stream_gops(s, device="cpu")
 assert len(dec) == 3
+enc = dt.Encoder(dt.Metadata(w, h, dt.SUBSAMP_420),
+                 dt.EncoderConfig(gop=3, stable_refresh=2), device="cpu")
+enc.start()
+seq = enc.encode_stream(frames)
+assert len(list(dt.Decoder(draw_info=7, device="cpu").decode_stream(seq))) == 3
 with tempfile.TemporaryDirectory() as td:
     yuv = Path(td) / "in.yuv"
     yuv.write_bytes(b"".join(p.tobytes() for f in frames for p in f))
@@ -101,6 +106,8 @@ def test_cuda_request_raises_without_cuda():
         lambda: next(iter_decode_gops(b"")),
         lambda: build_gop_encoder(dt.SUBSAMP_420, 48, 32, 2, 1),
         lambda: build_gop_decoder(dt.SUBSAMP_420, 48, 32, 16, 16),
+        lambda: dt.Encoder(meta),
+        lambda: dt.Decoder(),
         lambda: dt.encode_stream_gops(frames, meta, dt.EncoderConfig(gop=2),
                                       device="cuda"),
     ]

@@ -3,14 +3,16 @@
 For the `cif` and `1080p` clips, encodes with the JAX package's
 GOP-parallel CRF encoder on the CPU (gop 12, qp 85, stable_refresh 11)
 and decodes with its GOP-parallel decoder. For the `*_cli` clips, runs
-`python -m dsv1_tpu.cli e` and `d` with the CLI's defaults (per-frame
-ABR, auto bitrate) under JAX_PLATFORMS=cpu. Records the SHA-256 of the
-input clip, of the stream and of the decoded planes in
+`python -m dsv1_tpu.cli e` with the clip's arguments (the defaults:
+per-frame ABR, auto bitrate, gop 12) and `d`, plus each extra decode the
+clip lists (`-drawinfo7` for `1080p_seq_cli`), under JAX_PLATFORMS=cpu.
+Records the SHA-256 of the input clip, of the stream and of each decode
+in
 `dsv1_tpu_torch/data/golden.json`. `chip_smoke.py` and
 `tests/test_torch_golden.py` check the port against that file. The
 clips and their settings are `dsv1_tpu_torch/utils/golden.py`; only
-this script's JAX half imports `dsv1_tpu`. The 4K CLI clip takes
-minutes and a few GB of host memory.
+this script's JAX half imports `dsv1_tpu`. The 4K CLI clip and the two
+1080p CLI clips take minutes each and a few GB of host memory.
 
     JAX_PLATFORMS=cpu python tools/torch_golden.py [--only NAME]
 """
@@ -44,7 +46,7 @@ def jax_entry(name: str) -> dict:
     from dsv1_tpu.models.metadata import Metadata
     from dsv1_tpu.parallel import decode_stream_gops, encode_stream_gops
 
-    w, h, _gen, n, _ = CLIPS[name]
+    w, h, _gen, n = CLIPS[name][:4]
     yuv, frames = clip_frames(name)
     cfg = EncoderConfig(quality=quality_percent(QUALITY_PCT), gop=GOP,
                         rc_mode=RATE_CONTROL_CRF, stable_refresh=GOP - 1)
@@ -58,25 +60,32 @@ def jax_entry(name: str) -> dict:
 
 
 def jax_cli_entry(name: str) -> dict:
-    """Golden entry for one *_cli clip: the JAX CLI's `e` then `d`, each
-    in its own process on the CPU."""
-    w, h, _gen, n, _ = CLIPS[name]
+    """Golden entry for one *_cli clip: the JAX CLI's `e` then each `d`,
+    each in its own process on the CPU."""
+    w, h, _gen, n, _args, extra_decodes = CLIPS[name]
     yuv, _frames = clip_frames(name)
     env = dict(os.environ, JAX_PLATFORMS="cpu")
+    decodes = {"decode_sha256": (), **extra_decodes}
     with tempfile.TemporaryDirectory() as td:
         inp, dsv, out = (Path(td) / f for f in ("in.yuv", "s.dsv", "o.yuv"))
         inp.write_bytes(yuv)
         enc = cli_encode_args(name, inp, dsv)
-        for argv in (enc, cli_decode_args(dsv, out)):
-            subprocess.run([sys.executable, "-m", "dsv1_tpu.cli", *argv],
-                           cwd=ROOT, env=env, check=True)
+        subprocess.run([sys.executable, "-m", "dsv1_tpu.cli", *enc],
+                       cwd=ROOT, env=env, check=True)
         stream = dsv.read_bytes()
-        return {"width": w, "height": h, "frames": n, "seed": SEED,
-                "argv": [a for a in enc if not a.startswith(("-inp_",
-                                                             "-out_"))],
-                "clip_sha256": sha(yuv), "stream_sha256": sha(stream),
-                "stream_bytes": len(stream),
-                "decode_sha256": sha(out.read_bytes())}
+        entry = {"width": w, "height": h, "frames": n, "seed": SEED,
+                 "argv": [a for a in enc if not a.startswith(("-inp_",
+                                                              "-out_"))],
+                 "clip_sha256": sha(yuv), "stream_sha256": sha(stream),
+                 "stream_bytes": len(stream)}
+        for key, extra in decodes.items():
+            subprocess.run([sys.executable, "-m", "dsv1_tpu.cli",
+                            *cli_decode_args(dsv, out, extra)],
+                           cwd=ROOT, env=env, check=True)
+            entry[key] = sha(out.read_bytes())
+            if extra:
+                entry[key.replace("_sha256", "_argv")] = list(extra)
+        return entry
 
 
 def main():

@@ -4,16 +4,19 @@ Encodes one golden clip (dsv1_tpu_torch/utils/golden.py) on the GPU
 under torch.profiler: the CRF clips (`cif`, `1080p`) through
 `dsv1_tpu_torch.encode_stream_gops`, the CLI clips (`cif_cli`, `4k_cli`)
 through `dsv1_tpu_torch.cli.main` with the CLI's defaults (per-frame
-ABR), from and to files. Reads the per-GOP layer spans the encoder
-records (`gop.upload`, `gop.motion`, `gop.recon_chain` with
-`gop.rate_read` inside it under ABR, `gop.pack`; parallel/gop.py), the
-device busy share, the top device kernels and the device kernels
-launched per encoded frame (kernel events, memcpy and memset left out,
-over the clip's frames); then profiles the decode of the stream the
-same way. The same encode also runs once without the profiler, so the
-profiler's own cost shows. The last line sums up the encode: kernels
-per frame and the `gop.recon_chain` and `gop.motion` seconds. Needs a
-CUDA device.
+ABR), from and to files, the sequential clips with their own CLI
+arguments. Reads the layer spans the encoder records (per GOP
+`gop.upload`, `gop.motion`, `gop.recon_chain` with `gop.rate_read`
+inside it under ABR, `gop.pack`, and `gop.intra_core` at gop 0;
+parallel/gop.py; per frame of the sequential Encoder `seq.motion`,
+`seq.core`, `seq.pack`; models/encoder.py), the device busy share, the
+top device kernels, the device kernels launched per encoded frame
+(kernel events, memcpy and memset left out, over the clip's frames) and
+the device-to-host copies per frame (the host's reads of the device);
+then profiles the decode of the stream the same way. The same encode
+also runs once without the profiler, so the profiler's own cost shows.
+The last line sums up the encode: kernels and host reads per frame, the
+unprofiled wall and the spans' seconds. Needs a CUDA device.
 
     python3 tools/torch_profile.py [--clip NAME] [--out FILE]
 """
@@ -28,7 +31,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 SPANS = ("gop.upload", "gop.motion", "gop.recon_chain", "gop.rate_read",
-         "gop.pack")
+         "gop.pack", "gop.intra_core", "seq.motion", "seq.core", "seq.pack")
 
 
 def _sync():
@@ -40,7 +43,7 @@ def _sync():
 def profile(fn):
     """One fn() call under torch.profiler: (wall seconds, device busy
     share, host seconds per encoder span, top device kernels, kernel
-    launches)."""
+    launches, device-to-host copies)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -51,7 +54,7 @@ def profile(fn):
         fn()
         wall = _sync() - t0
     rows, spans = [], {}
-    busy_us, kernels = 0.0, 0
+    busy_us, kernels, reads = 0.0, 0, 0
     for e in prof.key_averages():
         if e.key in SPANS:
             # a span also shows as a device-side range: not a kernel
@@ -66,9 +69,11 @@ def profile(fn):
             rows.append((dt_us, e.count, e.key))
             if not e.key.startswith(("Memcpy", "Memset")):
                 kernels += e.count
+            elif e.key.startswith("Memcpy DtoH"):
+                reads += e.count
     rows.sort(reverse=True)
     torch.cuda.synchronize()
-    return wall, busy_us * 1e-6 / wall, spans, rows[:15], kernels
+    return wall, busy_us * 1e-6 / wall, spans, rows[:15], kernels, reads
 
 
 def main():
@@ -123,26 +128,30 @@ def main():
     t0 = _sync()
     encode()
     plain_wall = _sync() - t0
-    enc_wall, enc_busy, spans, enc_top, enc_k = profile(encode)
-    dec_wall, dec_busy, _, dec_top, dec_k = profile(lambda: decode(stream))
+    enc_wall, enc_busy, spans, enc_top, enc_k, enc_r = profile(encode)
+    dec_wall, dec_busy, _, dec_top, dec_k, dec_r = profile(
+        lambda: decode(stream))
+    nf = len(frames)
     for f in (inp, dsv, out):
         f.unlink(missing_ok=True)
     td.rmdir()
     res = {"clip": args.clip, "frames": len(frames), "card": card,
            "encode": {"wall_s": plain_wall, "profiled_wall_s": enc_wall,
                       "spans_s": spans, "device_busy_share": enc_busy,
-                      "kernels_per_frame": enc_k / len(frames),
+                      "kernels_per_frame": enc_k / nf,
+                      "host_reads_per_frame": enc_r / nf,
                       "top_kernels_us": enc_top},
            "decode": {"profiled_wall_s": dec_wall,
                       "device_busy_share": dec_busy,
-                      "kernels_per_frame": dec_k / len(frames),
+                      "kernels_per_frame": dec_k / nf,
+                      "host_reads_per_frame": dec_r / nf,
                       "top_kernels_us": dec_top}}
     print(json.dumps(res, indent=1))
     print(json.dumps({"clip": args.clip, "card": card,
-                      "encode_kernels_per_frame": enc_k / len(frames),
-                      "decode_kernels_per_frame": dec_k / len(frames),
-                      "recon_chain_s": spans.get("gop.recon_chain"),
-                      "motion_s": spans.get("gop.motion")}))
+                      "encode_kernels_per_frame": enc_k / nf,
+                      "encode_host_reads_per_frame": enc_r / nf,
+                      "decode_kernels_per_frame": dec_k / nf,
+                      "encode_wall_s": plain_wall, "spans_s": spans}))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
