@@ -1,8 +1,10 @@
 """dsv1_tpu_torch — the DSV1 codec in PyTorch, with CUDA kernels for Hopper.
 
 A port of the JAX package `dsv1_tpu` (which stays the reference): the
-GOP-parallel encode with CRF or the reference's per-frame ABR law, and
-intra-only CRF at gop 0 (`encode_stream_gops`), its decode twin
+GOP-parallel encode with CRF, the reference's per-frame ABR law or
+GOP-granular ABR, and intra-only CRF at gop 0 (`encode_stream_gops`),
+with each frame's quantized planes compacted on the device and each GOP
+packed natively, its decode twin
 (`decode_stream_gops`, `iter_decode_gops`), the sequential,
 resumable `Encoder` and `Decoder` (with the `draw_info` overlay) and the
 CLI (`python -m dsv1_tpu_torch.cli e|d`). Tensor work is PyTorch; the five

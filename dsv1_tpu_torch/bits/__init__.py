@@ -40,8 +40,9 @@ def lib():
     global _lib
     if _lib is None:
         _lib = ctypes.CDLL(str(_so_path()))
-        _lib.dsv1n_pack_picture.restype = ctypes.c_int32
-        _lib.dsv1n_parse_picture.restype = ctypes.c_int32
+        for name in ("dsv1n_pack_picture", "dsv1n_parse_picture",
+                     "dsv1n_runs_from_dense8", "dsv1n_pack_chunk"):
+            getattr(_lib, name).restype = ctypes.c_int32
     return _lib
 
 
@@ -121,6 +122,101 @@ def pack_picture(fourcc: bytes, version: int, pkt_type: int, fnum: int,
             _u8p(out), ctypes.c_uint32(cap))
         if n >= 0:
             return bytearray(out[:n].tobytes())
+        cap *= 2
+
+
+def runs_from_dense8(q8: np.ndarray, epos: np.ndarray, evals: np.ndarray):
+    """(runs u32, vals i32) symbol stream of a dense int8 plane with its
+    sorted exception list (ops/hzcc.py compact_dense_i): the values of
+    hzcc.runs_from_qvals on the plane they stand for."""
+    q8 = np.ascontiguousarray(q8, np.int8)
+    epos = np.ascontiguousarray(epos, np.int32)
+    evals = np.ascontiguousarray(evals, np.int32)
+    cap = q8.size
+    runs = np.empty(max(cap, 1), np.uint32)
+    vals = np.empty(max(cap, 1), np.int32)
+    n = lib().dsv1n_runs_from_dense8(
+        q8.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        ctypes.c_int32(q8.size), _i32p(epos), _i32p(evals),
+        ctypes.c_int32(epos.size), _u32p(runs), _i32p(vals),
+        ctypes.c_int32(cap))
+    assert n >= 0
+    return runs[:n], vals[:n]
+
+
+def pack_chunk(fourcc: bytes, version: int, blk_w: int, blk_h: int,
+               nbh: int, nbv: int, quant, qp_bits: int, meta_pkt: bytes,
+               C: int, G: int, g0: int, ngops: int, nframes: int,
+               fnum_base: int, pt_ref: int, iq8, ipos, ivals, idc, istable,
+               pruns, pvals, pcnt, pdc, phasref, pmode, pmvx, pmvy, psub,
+               pstable, prev_link: int):
+    """Assemble C GOPs of G frames into one packet byte stream natively
+    (dsv1n_pack_chunk): per GOP a metadata packet, then its pictures, and
+    the link chain across them.
+
+    iq8/ipos/ivals: per plane, (C, ...) arrays of the I frames' dense
+    int8 planes and sorted exception lists (hzcc.compact_dense_i);
+    pruns/pvals/pcnt: per plane, (C, G-1, K) sparse (run, value) arrays
+    (u16, i16) and (C, G-1) counts (hzcc.compact_sparse_p). quant: a
+    scalar, a (C, 2) array of per-GOP (I, P) quants or a (C, G) array of
+    per-frame quants. Frames from `nframes` on and GOPs from `ngops` on
+    are left out. Returns (bytes, the new prev_link)."""
+    fcc = np.frombuffer(fourcc, np.uint8)
+    meta = np.frombuffer(bytes(meta_pkt), np.uint8)
+    quants = (np.full((C, G), quant, np.int32) if np.isscalar(quant)
+              else np.ascontiguousarray(quant, np.int32))
+    if quants.shape == (C, 2) and G != 2:
+        q2, quants = quants, np.empty((C, G), np.int32)
+        quants[:, :1] = q2[:, :1]
+        quants[:, 1:] = q2[:, 1:2]
+    assert quants.shape == (C, G)
+
+    def ptrs(arrs, dt):
+        arrs = [np.ascontiguousarray(a, dt) for a in arrs]
+        return arrs, (ctypes.c_void_p * 3)(*[a.ctypes.data for a in arrs])
+
+    iq8_a, iq8_p = ptrs(iq8, np.int8)
+    ipos_a, ipos_p = ptrs(ipos, np.int32)
+    ivals_a, ivals_p = ptrs(ivals, np.int32)
+    pruns_a, pruns_p = ptrs(pruns, np.uint16)
+    pvals_a, pvals_p = ptrs(pvals, np.int16)
+    pcnt_a, pcnt_p = ptrs(pcnt, np.int32)
+    iN = np.asarray([a.shape[-1] for a in iq8_a], np.int32)
+    iK = np.asarray([a.shape[-1] for a in ipos_a], np.int32)
+    pK = np.asarray([a.shape[-1] for a in pruns_a], np.int32)
+    idc = np.ascontiguousarray(idc, np.int32)
+    istable = np.ascontiguousarray(istable, np.uint8)
+    pdc = np.ascontiguousarray(pdc, np.int32)
+    phasref = np.ascontiguousarray(phasref, np.uint8)
+    pmode = np.ascontiguousarray(pmode, np.uint8)
+    pmvx = np.ascontiguousarray(pmvx, np.int16)
+    pmvy = np.ascontiguousarray(pmvy, np.int16)
+    psub = np.ascontiguousarray(psub, np.uint8)
+    pstable = np.ascontiguousarray(pstable, np.uint8)
+    nblk = nbh * nbv
+    # at most 10 bytes a symbol: the sparse counts plus the dense planes'
+    # nonzeros and exceptions
+    nsym = sum(int(np.count_nonzero(a)) for a in iq8_a) \
+        + sum(int(a.shape[-1]) for a in ipos_a) * C \
+        + sum(int(c.sum()) for c in pcnt_a)
+    cap = (len(meta) + 64) * C + (C * G) * (192 + nblk * 10) + nsym * 10
+    pl = ctypes.c_int64(prev_link)
+    while True:
+        out = np.zeros(cap, np.uint8)   # the C side ORs bits into it
+        n = lib().dsv1n_pack_chunk(
+            _u8p(fcc), ctypes.c_uint8(version), ctypes.c_int32(blk_w),
+            ctypes.c_int32(blk_h), ctypes.c_int32(nbh), ctypes.c_int32(nbv),
+            _i32p(quants), ctypes.c_int32(qp_bits), _u8p(meta),
+            ctypes.c_int32(meta.size), ctypes.c_int32(C), ctypes.c_int32(G),
+            ctypes.c_int64(g0), ctypes.c_int64(ngops),
+            ctypes.c_int64(nframes), ctypes.c_int64(fnum_base),
+            ctypes.c_int32(pt_ref), iq8_p, ipos_p, ivals_p, _i32p(iN),
+            _i32p(iK), _i32p(idc), _u8p(istable), pruns_p, pvals_p, pcnt_p,
+            _i32p(pK), _i32p(pdc), _u8p(phasref), _u8p(pmode), _i16p(pmvx),
+            _i16p(pmvy), _u8p(psub), _u8p(pstable), ctypes.byref(pl),
+            _u8p(out), ctypes.c_int64(cap))
+        if n >= 0:
+            return out[:n].tobytes(), int(pl.value)
         cap *= 2
 
 

@@ -12,9 +12,10 @@ clamp(gop-1, 1, 14). Encode routes as the JAX CLI does: the GOP-parallel
 path (per-frame ABR or CRF, gop 0 under CRF) with frames read from disk
 GOP by GOP, or the sequential `Encoder` frame by frame for -gopar0,
 gop > 4096 and ABR at gop 0. Decode streams chain by chain, or runs the
-sequential `Decoder` with -drawinfo. -gopabr1 (on the GOP-parallel path)
-and effort > 0 exit with code 2, "not ported yet". `main(argv, device)`
-runs on the card unless the caller passes device="cpu".
+sequential `Decoder` with -drawinfo. -gopabr1 picks GOP-granular ABR on
+the GOP-parallel path; effort > 0 exits with code 2, "not ported yet".
+`main(argv, device)` runs on the card unless the caller passes
+device="cpu".
 """
 
 import contextlib
@@ -101,8 +102,7 @@ def enc_params():
               "parity (> 0: not ported yet)"),
         Param("gopabr", 0, 0, 1, None,
               "GOP-granular ABR rate feedback. 0 = default: the per-frame "
-              "ABR law, byte-identical to the reference (1: not ported "
-              "yet)"),
+              "ABR law, byte-identical to the reference"),
     ]
 
 
@@ -227,8 +227,7 @@ def encode_main(argv, device="cuda") -> int:
     # gop 0 run on the sequential encoder, as in the JAX CLI
     par_rc = rc_mode == C.RATE_CONTROL_CRF or gop > 0
     use_par = bool(_get(params, "gopar")) and gop <= 4096 and par_rc
-    if use_par and _get(params, "gopabr"):
-        return _not_ported("-gopabr1 (GOP-granular ABR)")
+    abr_mode = "gop" if _get(params, "gopabr") else "exact"
     if _get(params, "effort"):
         return _not_ported("-effort > 0")
     cfg = EncoderConfig(
@@ -262,7 +261,8 @@ def encode_main(argv, device="cuda") -> int:
 
     with _profile(opts["prof"]), open(opts["inp"], "rb") as f:
         if use_par:
-            out = encode_stream_gops(frames(f), meta, cfg, device)
+            out = encode_stream_gops(frames(f), meta, cfg, device,
+                                     abr_mode=abr_mode)
         else:
             enc = Encoder(meta, cfg, device)
             enc.start()

@@ -32,6 +32,8 @@ from ..ops import bmc, frame as fr, hzcc, sbt
 from ..ops.cint import lb2
 from ..ops.hme import hme_batch
 from ..state import encoder_tensors
+from ..utils.blob import fetch, fetch_dense
+from ..utils.stats import STATS
 from .bitstream import (encode_eos_packet, encode_metadata_packet,
                         set_link_offsets)
 from .metadata import Metadata
@@ -209,11 +211,14 @@ def pack_picture(fnum: int, blk_w: int, blk_h: int, stable: np.ndarray,
                  has_ref: bool, is_ref: bool, mv: dict | None, quant: int,
                  qvals3, dcs3, nbh: int, nbv: int) -> bytearray:
     """Host-side picture packet assembly (encode_picture,
-    dsv_encoder.c:463-536) in one native call; qvals3: per-plane dense
-    quantized values in traversal order, dcs3: raw DCs."""
+    dsv_encoder.c:463-536) in one native call; qvals3: per plane, the
+    dense quantized values in traversal order or their (runs, vals)
+    symbols; dcs3: raw DCs."""
     planes = []
     for ci in range(3):
-        runs, vals = hzcc.runs_from_qvals(np.asarray(qvals3[ci]))
+        q3 = qvals3[ci]
+        runs, vals = (q3 if isinstance(q3, tuple)
+                      else hzcc.runs_from_qvals(np.asarray(q3)))
         planes.append((runs, vals, int(dcs3[ci])))
     return bits.pack_picture(
         FOURCC, VERSION_MINOR, make_pt(is_ref, has_ref), fnum, blk_w, blk_h,
@@ -369,9 +374,10 @@ class Encoder:
     per-pixel work runs on `device` with the port's kernels at batch 1.
     Per frame the host reads the device at most twice: after prep + HME
     (average luma, intra %, the motion fields) and after the core (the
-    quantized planes, DCs and stable blocks). `state_dict` holds host
-    data with the JAX package's keys and dtypes, so a JAX encoder's state
-    resumes here and the other way round."""
+    quantized planes, compacted on the device, DCs and stable blocks;
+    the dense planes too when the compaction overflowed). `state_dict`
+    holds host data with the JAX package's keys and dtypes, so a JAX
+    encoder's state resumes here and the other way round."""
 
     _STATE_SCALARS = (
         "rc_quant", "bpf_total", "bpf_reset", "bpf_avg", "total_P_frame_q",
@@ -447,6 +453,7 @@ class Encoder:
                        self.blk_w, self.blk_h, self.nbh, self.nbv,
                        self.meta.subsamp, levels, calls)
         nblk = self.nbh * self.nbv
+        STATS["hme_calls"] += 1
         host = torch.cat([al.reshape(1).to(torch.int32),
                           mv["intra_pct"].reshape(1).to(torch.int32)]
                          + [mv[k].reshape(-1).to(torch.int32)
@@ -514,12 +521,10 @@ class Encoder:
                      else (None,) * 4)
             qvals, dcs, recon = core(imgs[0], self._ref_recon, has_ref,
                                      quant, stable, *margs)
-            host = torch.cat([q.reshape(-1) for q in qvals]
-                             + [torch.stack(dcs).reshape(-1),
-                                stable.to(torch.int32)]).cpu().numpy()
-            *qv, dc, stable_h = split_row(host, [q.numel() for q in qvals]
-                                          + [3, nblk])
-            self.stable_blocks = stable_h.astype(np.uint8)
+            STATS["core_p" if has_ref else "core_i"] += 1
+            qv, dc, stable_h = self._compacted(qvals, dcs, stable, has_ref,
+                                               quant)
+            self.stable_blocks = stable_h
         if want_recon:
             self._ref_recon = recon
             self._ref_pyr = imgs
@@ -539,6 +544,38 @@ class Encoder:
         set_link_offsets(picture, self.prev_link, len(picture))
         self.prev_link = len(picture)
         return packets
+
+    def _compacted(self, qvals, dcs, stable, has_ref: bool, quant: int):
+        """The frame's one host read: its planes compacted on the device
+        (a P frame's as capped (run, value) lists, cap from the quant;
+        an intra frame's as dense int8 plus the LL's large values), DCs
+        and stable blocks. Returns (per-plane (runs, vals) symbols, DCs,
+        stable blocks); a frame whose compaction overflowed reads its
+        dense planes instead (the JAX package's _uncompact)."""
+        geo = coef_geometry(self.meta.subsamp, self.meta.width,
+                            self.meta.height, self.nbh, self.nbv)[2]
+        parts = {"dc": torch.stack(dcs).to(torch.int32), "stable": stable}
+        names = ("runs", "vals", "cnt", "bad") if has_ref \
+            else ("q8", "pos", "vals", "bad")
+        for c, qv in enumerate(qvals):
+            if has_ref:
+                comp = hzcc.compact_sparse_p(qv, hzcc.sparse_cap_div(quant))
+            else:
+                comp = hzcc.compact_dense_i(qv, hzcc.ll_size(geo[c]))
+            parts.update({f"{k}{c}": t for k, t in zip(names, comp)})
+        host = fetch(parts)
+        if any(host[f"bad{c}"] > 0 for c in range(3)):
+            STATS["overflow_redos"] += 1
+            qv = split_row(fetch_dense([qvals])[0], [t.n for t in geo])
+        elif has_ref:
+            qv = [(host[f"runs{c}"][:host[f"cnt{c}"]].view(np.uint16)
+                   .astype(np.uint32),
+                   host[f"vals{c}"][:host[f"cnt{c}"]].astype(np.int32))
+                  for c in range(3)]
+        else:
+            qv = [bits.runs_from_dense8(host[f"q8{c}"], host[f"pos{c}"],
+                                        host[f"vals{c}"]) for c in range(3)]
+        return qv, host["dc"], host["stable"].astype(np.uint8)
 
     def end_of_stream(self) -> bytearray:
         """dsv_enc_end_of_stream (dsv_encoder.c:766-778)."""

@@ -9,6 +9,12 @@ overwrites each coefficient with its dequantized value as it codes it
 rasters, so each band is a slice of the coefficient grid, processed in
 traversal order: when odd ceil dims make bands alias, later bands read
 the values earlier bands wrote back, as in the reference.
+
+`compact_dense_i` and `compact_sparse_p` shrink a frame's quantized
+planes on the device before the host reads them (intra planes as dense
+int8 plus the LL's large values, P planes as capped (run, value) lists),
+with the JAX package's layouts and overflow verdicts; `sparse_cap_div`
+sizes the P cap from the quant.
 """
 
 from dataclasses import dataclass
@@ -173,6 +179,79 @@ def dequant_plane_grid(qgrid, dc: int, q: int, is_p: bool, plane_idx: int,
         out[oy:oy + sh, ox:ox + sw] = torch.where(vals == 0, 0, dq)
     out[0, 0] = dc
     return out
+
+
+def ll_size(tables: TraversalTables) -> int:
+    """Number of positions in the LL segment, the head of the traversal."""
+    _lvl, _oy, _ox, sh, sw, _bj, _bi = tables.segs[0]
+    return sh * sw
+
+
+def _first_positions(flags, K: int, fill: int):
+    """Indices of the first K true entries of the 1-D bool tensor flags,
+    in order, `fill` past the last one, and the count of true entries:
+    the k-th true entry is the first index where the running count
+    reaches k (cumsum + searchsorted: fixed shapes, no host sync)."""
+    c = torch.cumsum(flags.to(torch.int32), 0, dtype=torch.int32)
+    cnt = c[-1]
+    k = torch.arange(1, K + 1, dtype=torch.int32, device=flags.device)
+    pos = torch.searchsorted(c, k, side="left").to(torch.int32)
+    pos = torch.where(k <= cnt, pos, fill)
+    return pos, cnt
+
+
+def compact_dense_i(qv, ll_n: int):
+    """An intra plane's quantized values qv (n,) int32 as (q8 (n,) int8
+    clamped to [-128, 127], pos (K,) int32: the LL positions holding
+    |q| > 127, the plane size past them, vals (K,) int32 their values,
+    nbig () int32: the values the layout cannot carry, past the LL's
+    |q| > 127 and beyond K in the LL; nonzero means overflow), K =
+    min(256, ll_n) (dsv1_tpu/ops/hzcc.py compact_dense_i)."""
+    n = qv.shape[0]
+    q8 = qv.clamp(-128, 127).to(torch.int8)
+    ll = qv[:ll_n]
+    K = min(256, ll_n)
+    pos, cnt = _first_positions(ll.abs() > 127, K, n)
+    vals = torch.where(pos < ll_n, ll[pos.clamp(0, ll_n - 1)], 0) \
+        .to(torch.int32)
+    nbig = (qv[ll_n:].abs() > 127).sum(dtype=torch.int32) \
+        + (cnt - K).clamp(min=0)
+    return q8, pos, vals, nbig
+
+
+def sparse_cap_div(quant: int) -> int:
+    """Cap divisor of compact_sparse_p for the operating quant: P planes
+    are denser at high quality, so the cap widens there."""
+    if quant < 160:
+        return 16
+    if quant < 256:
+        return 32
+    return 256
+
+
+def _wrap_i16(x):
+    """int32 values to int16 two's complement (the low 16 bits)."""
+    return (((x + 0x8000) & 0xFFFF) - 0x8000).to(torch.int16)
+
+
+def compact_sparse_p(qv, cap_div: int = 256):
+    """A P plane's quantized values qv (n,) int32 as its first K nonzeros,
+    K = min(n, max(256, n // cap_div)): (runs (K,) the zero run before
+    each, u16 bits in an int16 tensor, vals (K,) int16, cnt () int32 the
+    plane's nonzero count, ovf () bool: more than K nonzeros, a run over
+    0xFFFE or a value past int16). Entries past cnt hold what the JAX
+    package's compact_sparse_p gives them, element for element."""
+    n = qv.shape[0]
+    K = min(n, max(256, n // cap_div))
+    pos, cnt = _first_positions(qv != 0, K, n)
+    vals = torch.where(pos < n, qv[pos.clamp(0, n - 1)], 0)
+    prev = torch.cat([pos.new_full((1,), -1), pos[:-1]])
+    runs = pos - prev - 1
+    valid = torch.arange(K, device=qv.device) < cnt
+    ovf = ((cnt > K)
+           | (torch.where(valid, runs, 0).max() > 0xFFFE)
+           | (torch.where(valid, vals.abs(), 0).max() > 0x7FFF))
+    return _wrap_i16(runs), _wrap_i16(vals), cnt, ovf
 
 
 def runs_from_qvals(qvals: np.ndarray):

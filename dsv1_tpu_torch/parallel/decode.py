@@ -31,6 +31,7 @@ from ..models.metadata import Metadata
 from ..device import resolve
 from ..models.encoder import coef_geometry, split_row
 from ..ops import bmc, frame as fr, hzcc, sbt
+from ..utils.stats import STATS
 
 
 class GopDecoder:
@@ -53,6 +54,7 @@ class GopDecoder:
         is_p = bool(pic["has_ref"])
         stable = torch.from_numpy(pic["stable"]).to(dev)
         if is_p:
+            STATS["decode_p"] += 1
             mv = torch.from_numpy(np.stack([
                 pic[k].astype(np.int32)
                 for k in ("modes", "mvx", "mvy", "submask")])).to(dev)

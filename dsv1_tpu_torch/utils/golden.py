@@ -7,7 +7,10 @@ input clip, of the JAX package's stream and of its decode
 the CLI: `cif_cli` and `4k_cli` with its defaults (per-frame ABR, auto
 bitrate, gop 12, the GOP-parallel encoder), `1080p_seq_cli` with
 -gopar0 (the same ABR on the sequential Encoder; its -drawinfo7 decode
-is hashed too) and `1080p_gop0_cli` intra only (-gop0 -rc_mode1).
+is hashed too), `1080p_gop0_cli` intra only (-gop0 -rc_mode1) and
+`1080p_gopabr_cli` with -gopabr1 (GOP-granular ABR: three full GOPs and
+the next GOP's I frame, so the rate model's pipeline reaches its full
+depth).
 """
 
 import hashlib
@@ -40,6 +43,8 @@ CLIPS = {
                       {"drawinfo_sha256": ("-drawinfo7",)}),
     "1080p_gop0_cli": (1920, 1080, "make_rich_clip", 12,
                        ("-w1920", "-h1080", "-gop0", "-rc_mode1"), {}),
+    "1080p_gopabr_cli": (1920, 1080, "make_rich_clip", 37,
+                         ("-w1920", "-h1080", "-gopabr1"), {}),
 }
 
 

@@ -4,15 +4,17 @@ The same argv through `dsv1_tpu.cli.main` and
 `dsv1_tpu_torch.cli.main(..., device="cpu")` must write the same .dsv
 and, decoded by each CLI, the same YUV: at the CLI defaults (per-frame
 ABR, auto bitrate, gop 12), with CRF (-rc_mode1), 4:4:4 input decoded
-with -out420p1, and on the sequential paths: -gopar0, intra-only -gop0
-(CRF through the GOP-parallel encoder, ABR through the sequential
-Encoder), -gop5000 and the -drawinfo7 overlay decode. Options the port
-does not run yet (-gopabr1, -effort1) exit with code 2."""
+with -out420p1, GOP-granular ABR (-gopabr1) on 4:2:2 input, and on the
+sequential paths: -gopar0, intra-only -gop0 (CRF through the
+GOP-parallel encoder, ABR through the sequential Encoder), -gop5000 and
+the -drawinfo7 overlay decode. An option the port does not run yet
+(-effort1) exits with code 2."""
 
 import pytest
 import torch
 
 from dsv1_tpu import cli as jcli
+import dsv1_tpu_torch as dt
 from dsv1_tpu_torch import cli as tcli
 
 from . import corpus
@@ -28,7 +30,7 @@ W, H, N = 96, 80, 14
     (0, [], ["-out420p1"]),          # 4:4:4 in, 4:2:0 out
 ])
 def test_cli_matches_jax(tmp_path, fmt, extra, dec_extra):
-    subsamp = {0: 0x0, 2: 0x5}[fmt]
+    subsamp = {0: dt.SUBSAMP_444, 1: dt.SUBSAMP_422, 2: dt.SUBSAMP_420}[fmt]
     (tmp_path / "in.yuv").write_bytes(
         corpus.make_clip(W, H, subsamp, N, seed=21))
     enc = [f"-inp_{tmp_path}/in.yuv", f"-w{W}", f"-h{H}", f"-fmt{fmt}",
@@ -69,7 +71,14 @@ def test_cli_sequential_matches_jax(tmp_path, extra, dec_extra):
     test_cli_matches_jax(tmp_path, 2, extra, dec_extra)
 
 
-@pytest.mark.parametrize("argv", [["e", "-gopabr1"], ["e", "-effort1"]])
+def test_cli_gopabr_matches_jax(tmp_path):
+    """-gopabr1 on 4:2:2 input, decoded to 4:2:0: a GOP of 12 and a tail
+    GOP of 2 frames, which both packages pad to 12 for the overflow
+    verdict."""
+    test_cli_matches_jax(tmp_path, 1, ["-gopabr1"], ["-out420p1"])
+
+
+@pytest.mark.parametrize("argv", [["e", "-effort1"]])
 def test_cli_not_ported_exits(tmp_path, capsys, argv):
     (tmp_path / "in.yuv").write_bytes(b"")
     code = tcli.main([argv[0], f"-inp_{tmp_path}/in.yuv",

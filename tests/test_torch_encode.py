@@ -70,6 +70,8 @@ def test_encode_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="effort"):
         dt.encode_stream_gops(frames, meta, EncoderConfig(gop=2, effort=1),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="abr_mode"):
+    # GOP-granular ABR runs (tests/test_torch_gopabr.py); an unknown
+    # abr_mode is refused
+    with pytest.raises(ValueError, match="abr_mode"):
         dt.encode_stream_gops(frames, meta, EncoderConfig(gop=2, rc_mode=1),
-                              device="cpu", abr_mode="gop")
+                              device="cpu", abr_mode="frame")

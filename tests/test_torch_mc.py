@@ -7,9 +7,9 @@ neighbourhood for its half-pel phase. Each plane is held against the
 JAX XLA form (`compensate_plane(pallas_ok=False)`, whole-image half-pel
 variants) and against the Pallas `_mc_kernel` run in interpret mode,
 with the fuzz of test_pallas_mc.py: random modes, MVs far past the plane
-edges, random submasks; in 4:2:0 and 4:4:4, and on a layout without
-guard margins, where the filter taps reach past both ends of the flat
-image."""
+edges, random submasks; in 4:2:0, 4:4:4, 4:2:2 and 4:1:1, and on a
+layout without guard margins, where the filter taps reach past both ends
+of the flat image."""
 
 import dataclasses
 
@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from dsv1_tpu.constants import SUBSAMP_420, SUBSAMP_444
+from dsv1_tpu.constants import (SUBSAMP_411, SUBSAMP_420, SUBSAMP_422,
+                                SUBSAMP_444)
 from dsv1_tpu.ops import bmc as jbmc, frame as jfr, pallas_mc
 from dsv1_tpu_torch.ops import bmc as tbmc, frame as tfr, mc as tmc
 
@@ -99,7 +100,8 @@ def test_mc_matches_jax(w, h, seed, c, monkeypatch):
         np.asarray(jbmc.add_residual(jnp.asarray(got), jnp.asarray(src))))
 
 
-@pytest.mark.parametrize("subsamp", [SUBSAMP_420, SUBSAMP_444])
+@pytest.mark.parametrize("subsamp", [SUBSAMP_420, SUBSAMP_444, SUBSAMP_422,
+                                     SUBSAMP_411])
 @pytest.mark.parametrize("w,h,blk,seed", [(100, 84, 16, 3), (72, 56, 24, 4)])
 def test_compensate_frame_matches_jax(subsamp, w, h, blk, seed,
                                       monkeypatch):

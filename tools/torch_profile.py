@@ -11,12 +11,16 @@ inside it under ABR, `gop.pack`, and `gop.intra_core` at gop 0;
 parallel/gop.py; per frame of the sequential Encoder `seq.motion`,
 `seq.core`, `seq.pack`; models/encoder.py), the device busy share, the
 top device kernels, the device kernels launched per encoded frame
-(kernel events, memcpy and memset left out, over the clip's frames) and
-the device-to-host copies per frame (the host's reads of the device);
-then profiles the decode of the stream the same way. The same encode
-also runs once without the profiler, so the profiler's own cost shows.
-The last line sums up the encode: kernels and host reads per frame, the
-unprofiled wall and the spans' seconds. Needs a CUDA device.
+(kernel events, memcpy and memset left out, over the clip's frames), the
+device-to-host copies per frame (the host's reads of the device) and
+their bytes per frame (the `bytes` of the trace's device-to-host memcpy
+events), and the encode's `overflow_redos` (GOPs whose compacted planes
+overflowed, dsv1_tpu_torch/utils/stats.py; null on a tree without
+it); then profiles the decode of the stream the same way. The same
+encode also runs once without the profiler, so the profiler's own cost
+shows. The last line sums up the encode: kernels, host reads and their
+bytes per frame, the unprofiled wall and the spans' seconds. Needs a
+CUDA device.
 
     python3 tools/torch_profile.py [--clip NAME] [--out FILE]
 """
@@ -40,10 +44,25 @@ def _sync():
     return time.perf_counter()
 
 
+def d2h_bytes(prof):
+    """Bytes of the device-to-host memcpy events in the profiler's trace
+    (None when the trace gives no bytes)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as td:
+        path = Path(td) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    sizes = [e.get("args", {}).get("bytes") for e in events
+             if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    if not sizes or None in sizes:
+        return None
+    return sum(sizes)
+
+
 def profile(fn):
     """One fn() call under torch.profiler: (wall seconds, device busy
     share, host seconds per encoder span, top device kernels, kernel
-    launches, device-to-host copies)."""
+    launches, device-to-host copies, their bytes)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -73,7 +92,8 @@ def profile(fn):
                 reads += e.count
     rows.sort(reverse=True)
     torch.cuda.synchronize()
-    return wall, busy_us * 1e-6 / wall, spans, rows[:15], kernels, reads
+    return (wall, busy_us * 1e-6 / wall, spans, rows[:15], kernels, reads,
+            d2h_bytes(prof))
 
 
 def main():
@@ -124,14 +144,24 @@ def main():
         def decode(_stream):
             assert cli.main(cli_decode_args(dsv, out), device=dev) == 0
 
+    try:
+        from dsv1_tpu_torch.utils.stats import STATS
+    except ImportError:   # a tree from before the compaction
+        STATS = None
     stream = encode()   # warm-up
     t0 = _sync()
     encode()
     plain_wall = _sync() - t0
-    enc_wall, enc_busy, spans, enc_top, enc_k, enc_r = profile(encode)
-    dec_wall, dec_busy, _, dec_top, dec_k, dec_r = profile(
+    if STATS is not None:
+        STATS.clear()
+    enc_wall, enc_busy, spans, enc_top, enc_k, enc_r, enc_b = profile(encode)
+    redos = None if STATS is None else STATS["overflow_redos"]
+    dec_wall, dec_busy, _, dec_top, dec_k, dec_r, dec_b = profile(
         lambda: decode(stream))
     nf = len(frames)
+
+    def per_frame(b):
+        return None if b is None else b / nf
     for f in (inp, dsv, out):
         f.unlink(missing_ok=True)
     td.rmdir()
@@ -140,16 +170,21 @@ def main():
                       "spans_s": spans, "device_busy_share": enc_busy,
                       "kernels_per_frame": enc_k / nf,
                       "host_reads_per_frame": enc_r / nf,
+                      "d2h_bytes_per_frame": per_frame(enc_b),
+                      "overflow_redos": redos,
                       "top_kernels_us": enc_top},
            "decode": {"profiled_wall_s": dec_wall,
                       "device_busy_share": dec_busy,
                       "kernels_per_frame": dec_k / nf,
                       "host_reads_per_frame": dec_r / nf,
+                      "d2h_bytes_per_frame": per_frame(dec_b),
                       "top_kernels_us": dec_top}}
     print(json.dumps(res, indent=1))
     print(json.dumps({"clip": args.clip, "card": card,
                       "encode_kernels_per_frame": enc_k / nf,
                       "encode_host_reads_per_frame": enc_r / nf,
+                      "encode_d2h_bytes_per_frame": per_frame(enc_b),
+                      "overflow_redos": redos,
                       "decode_kernels_per_frame": dec_k / nf,
                       "encode_wall_s": plain_wall, "spans_s": spans}))
     if args.out:
