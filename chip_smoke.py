@@ -53,15 +53,34 @@ non-zero:
    `Decoder`, and `Decoder().decode_stream` through the API), and
    `1080p_gop0_cli` (12 frames, -gop0 -rc_mode1: intra only through
    `encode_stream_gops`) with its decode.
-Phases 5, 6 and 7 are main paths: each path's streams and decodes must
+8. effort  — the wider level-0 motion search (-effort1..3): first kernel
+   #2 at level 0 (`hme_kernels.refine_level`, `hme_refine_level0`) and
+   `hme_wide` (`hme_kernels.refine_wide`) against their plain versions
+   on the first GOP of a 1920x1080 and a 3840x2160 clip at effort 3, on
+   `hme_batch`'s own arguments and on edge inputs (candidates at the
+   +-64 validity limits, a `pre` at the four edges of the 9-point
+   search), `hme_wide` at efforts 1, 2 and 3, and both again on the
+   B = 1 arguments the sequential Encoder passes at effort 2; both
+   decoders' last frame (`Decoder`, `iter_decode_gops`) of a CRF
+   effort-2 encode of `1080p_effort_seq_cli`'s clip held to the
+   Encoder's reconstruction of it; then three clips through the CLI and
+   files: `1080p_effort_cli` and `4k_effort_cli` (13 frames, -effort3
+   at the CLI's defaults: per-frame ABR on the GOP-parallel encoder) and
+   `1080p_effort_seq_cli` (13 frames, -gopar0 -effort2: the sequential
+   Encoder), each decoded by the CLI, the last also by the `Decoder`
+   API.
+Phases 5 to 8 are main paths: each path's streams and decodes must
 hash to dsv1_tpu_torch/data/golden.json (written from the JAX package
 by tools/torch_golden.py), and the kernels' launch counts are set to 0
 before each path and read after it; every kernel of a path must have
-launched on it (all four on the slice, CLI and sequential encodes,
-`haar_fwd` and neither `mc` nor HME on the gop-0 encode, `mc` on the
-`Decoder`), and each count must equal the count predicted from what the
-path did (`dsv1_tpu_torch/utils/stats.py` STATS: frames through the
-encode core as intra and as P, HME calls, P pictures decoded) and from
+launched on it (`mc`, `hme_refine`, `hme_base` and `haar_fwd` on the
+slice, CLI and sequential encodes, `hme_wide` in place of `hme_base` on
+the effort encodes, with `hme_refine_level0`: the level-0 launches,
+also counted in `hme_refine`; `haar_fwd` and neither `mc` nor HME on
+the gop-0 encode, `mc` on the decoders), and each count must equal the count
+predicted from what the path did (`dsv1_tpu_torch/utils/stats.py`
+STATS: frames through the encode core as intra and as P, HME calls at
+effort 0 and above, P pictures decoded) and from
 each wrapper's launches per call at the clip's geometry
 (`predict_launches`). Each encode prints its `overflow_redos`: the GOPs
 (gop 0: chunks; sequential: frames) whose compaction overflowed and
@@ -84,12 +103,22 @@ ENCODE_REPS = 2            # the first encode/decode of a clip warms up
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT32_LANES = 132 * 64     # SMs x INT32 lanes per SM
 U8_PER_WORD = 4            # u8 pixels per SIMD integer instruction
-KERNELS = ("mc", "hme_refine", "hme_base", "haar_fwd")
+SAD_OPS = 2                # per pixel of a SAD: |a - b|, then the add
+# `hme_refine_level0` counts `hme_refine`'s level-0 launches apart
+KERNELS = ("mc", "hme_refine", "hme_refine_level0", "hme_base", "hme_wide",
+           "haar_fwd")
+# the kernels of an encode at effort 0 and at effort 1..3
+BASE_PATH = ("mc", "hme_refine", "hme_base", "haar_fwd")
+WIDE_PATH = ("mc", "hme_refine", "hme_refine_level0", "hme_wide",
+             "haar_fwd")
 SLICE_CLIPS = ("cif", "1080p")     # encode_stream_gops, CRF
 # the CLI at its defaults (per-frame ABR), then GOP-granular ABR
 CLI_CLIPS = ("cif_cli", "4k_cli", "1080p_gopabr_cli")
 GOPABR_CLIP = "1080p_gopabr_cli"
 SEQ_CLIP, GOP0_CLIP = "1080p_seq_cli", "1080p_gop0_cli"
+# the CLI at -effort3 (per-frame ABR, 1080p and 4K), -gopar0 -effort2
+EFFORT_CLIPS = ("1080p_effort_cli", "4k_effort_cli", "1080p_effort_seq_cli")
+EFFORT_SEQ_CLIP = "1080p_effort_seq_cli"
 ROW_KEYS = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -182,8 +211,8 @@ def _search_area(w, h, nbh_l, nb, BW, BH):
 def work_hme_coarse(cargs):
     """(bytes, scalar ops) of the coarse levels of one GOP, summed over
     levels: per level both planes, candidates and outputs; per block
-    pixel 3 ops (sub, abs, add) for each of NC candidates (1 at the top
-    level, else 6) and 9 refine points."""
+    pixel SAD_OPS for each of NC candidates (1 at the top level, else 6)
+    and 9 refine points."""
     src, _ref, lays, BW, BH, nbh, nbv, levels = cargs
     nbytes = ops = 0
     for level in range(levels, 0, -1):
@@ -193,7 +222,8 @@ def work_hme_coarse(cargs):
         nb = nbh_l * -(-nbv // step)
         B, NC = src[level].shape[0], 1 if level == levels else 6
         nbytes += 2 * src[level].numel() + B * nb * (2 * NC + 3) * 4
-        ops += B * _search_area(p.w, p.h, nbh_l, nb, BW, BH) * 3 * (NC + 9)
+        ops += B * _search_area(p.w, p.h, nbh_l, nb, BW, BH) * SAD_OPS \
+            * (NC + 9)
     return nbytes, ops
 
 
@@ -209,17 +239,50 @@ def work_hme_base(args):
     nbv_l = nb // nbh_l
     inframe = min(nbh_l, -(-w // BW)) * min(nbv_l, -(-h // BH))
     nbytes = 2 * src2d.numel() + B * nb * (2 * NC + 6) * 4
-    ops = B * (_search_area(w, h, nbh_l, nb, BW, BH) * (3 * (NC + 9) + 28)
+    ops = B * (_search_area(w, h, nbh_l, nb, BW, BH)
+               * (SAD_OPS * (NC + 9) + 28)
                + inframe * 14 * 14 * (8 * 10 + 20))
+    return nbytes, ops
+
+
+def work_hme_level(args):
+    """(bytes, scalar ops) of one `refine_level` call: both planes, the
+    candidates and the outputs; per block pixel SAD_OPS for each of NC
+    candidates and 9 refine points."""
+    src2d, _ref, cmx, _cmy, _E, w, h, nbh_l, nb, BW, BH, _level = args
+    B, NC = src2d.shape[0], cmx.shape[-1]
+    nbytes = 2 * src2d.numel() + B * nb * (2 * NC + 3) * 4
+    return nbytes, (B * _search_area(w, h, nbh_l, nb, BW, BH) * SAD_OPS
+                    * (NC + 9))
+
+
+def work_hme_wide(wargs):
+    """(bytes, scalar ops) of one `refine_wide` call: both luma planes,
+    `pre` and the outputs; per block pixel SAD_OPS for each of the
+    (2R + 1)^2 - 1 offsets of the full-pel window (R = 2 effort) and the
+    28 of `work_hme_base`'s statistics; per in-frame block, 10 ops per
+    pixel of the 14x14 centre for each point of the half-pel grid
+    ((3 + 2 effort)^2 - 1) and 20 for the two texture statistics."""
+    _src, _ref, lay, nbh_l, nb, BW, BH, pre, effort = wargs
+    p = lay.planes[0]
+    B = pre[0].shape[0]
+    nbv_l = nb // nbh_l
+    inframe = min(nbh_l, -(-p.w // BW)) * min(nbv_l, -(-p.h // BH))
+    offsets = (4 * effort + 1) ** 2 - 1
+    points = (2 * effort + 3) ** 2 - 1
+    nbytes = 2 * B * (p.h + 2 * p.ext) * p.stride + B * nb * 9 * 4
+    ops = B * (_search_area(p.w, p.h, nbh_l, nb, BW, BH)
+               * (SAD_OPS * offsets + 28)
+               + inframe * 14 * 14 * (points * 10 + 20))
     return nbytes, ops
 
 
 def hme_bounds(work, bound):
     """The HME rows' bound from (bytes, scalar ops): the ops packed four
-    u8 pixels to an instruction (per 4 pixels of a SAD one VABSDIFF4, one
-    mask and one IDP.4A, where the scalar count has 3 ops a pixel; every
-    other per-pixel op likewise), with the scalar count's bound and the
-    bytes bound beside it: (bound_ms, bound_by, extra row fields)."""
+    u8 pixels to an instruction (per 4 pixels of a SAD one VABSDIFF4 and
+    one IDP.4A, where the scalar count has SAD_OPS a pixel; every other
+    per-pixel op likewise), with the scalar count's bound and the bytes
+    bound beside it: (bound_ms, bound_by, extra row fields)."""
     nbytes, ops = work
     b_ms, b_by = bound(nbytes, ops / U8_PER_WORD)
     return b_ms, b_by, {"scalar_ops_bound_ms": bound(0, ops)[0],
@@ -272,10 +335,10 @@ def row(name, source, replaces, err, ms, plain_ms, b_ms, b_by, **extra):
             "library_ms": None, **extra}
 
 
-def gop_motion(dev, frames, G=None):
+def gop_motion(dev, frames, G=None, effort=0):
     """A GOP's motion (G frames, the golden GOP by default) through the
-    port's encoder; returns (encoder, images, motion dict, the HME
-    kernels' calls)."""
+    port's encoder at `effort`; returns (encoder, images, motion dict,
+    the HME kernels' calls)."""
     import numpy as np
     import torch
 
@@ -287,7 +350,7 @@ def gop_motion(dev, frames, G=None):
     h, w = frames[0][0].shape
     enc = build_gop_encoder(dt.SUBSAMP_420, w, h, G,
                             dt.quality_percent(QUALITY_PCT), True, 4, 50,
-                            G - 1, 0, str(dev))
+                            G - 1, 0, str(dev), None, effort)
     packed = torch.from_numpy(np.stack([
         np.concatenate([np.asarray(p, np.uint8).ravel() for p in f])
         for f in frames[:G]])).to(dev)
@@ -648,9 +711,12 @@ def predict_launches(stats, w: int, h: int) -> dict:
     `mc` one per P frame predicted (encode core and decoders),
     `haar_fwd` per frame through the core one C call for each plane with
     a Haar level (levels 1.. of a P plane, 2.. of an intra plane), which
-    launches twice past HAAR_TILE_LEVELS levels, `hme_base` one per
-    `hme_batch` call and `hme_refine` levels + 1 per call (a kernel per
-    coarse level, then the candidates) at the auto pyramid depth."""
+    launches twice past HAAR_TILE_LEVELS levels; per `hme_batch` call at
+    effort 0 `hme_base` once and `hme_refine` levels + 1 times (a kernel
+    per coarse level, then the candidates) at the auto pyramid depth,
+    and per call at effort 1..3 `hme_refine` levels + 2 times (level 0
+    too; its level-0 launch also counts as `hme_refine_level0`) and
+    `hme_wide` once."""
     from dsv1_tpu_torch.models.encoder import (auto_pyramid_levels,
                                                block_geometry, coef_geometry)
     from dsv1_tpu_torch.constants import SUBSAMP_420
@@ -671,7 +737,10 @@ def predict_launches(stats, w: int, h: int) -> dict:
             "haar_fwd": stats.get("core_i", 0) * haar(2)
             + stats.get("core_p", 0) * haar(1),
             "hme_base": stats.get("hme_calls", 0),
-            "hme_refine": stats.get("hme_calls", 0) * (levels + 1)}
+            "hme_refine": stats.get("hme_calls", 0) * (levels + 1)
+            + stats.get("hme_calls_wide", 0) * (levels + 2),
+            "hme_refine_level0": stats.get("hme_calls_wide", 0),
+            "hme_wide": stats.get("hme_calls_wide", 0)}
 
 
 def check_predicted(path, launches, stats, w, h):
@@ -685,7 +754,8 @@ def check_predicted(path, launches, stats, w, h):
     return want
 
 
-def check_launches(path, launches, kernels=KERNELS, absent=()):
+def check_launches(path, launches, kernels=BASE_PATH,
+                   absent=("hme_wide",)):
     """Every kernel of `kernels` launched on the path, none of
     `absent`."""
     for k in kernels:
@@ -818,36 +888,49 @@ def phase_cli(dev, smi, golden, clips):
     return per_path
 
 
-def check_seq_hme(dev, frames):
-    """refine_coarse and refine_base_cm against their plain versions on
-    the B = 1 arguments the sequential Encoder passes for the second
-    frame of a clip (a P frame): per kernel the error, the CUDA-event ms
-    and the device-only ms."""
+def check_seq_hme(dev, frames, effort=0):
+    """The HME kernels against their plain versions on the B = 1
+    arguments the sequential Encoder passes at `effort` for the second
+    frame of a clip (a P frame): `refine_coarse`, then at effort 0
+    `refine_base_cm`, else `refine_level` at level 0 and `refine_wide`
+    (the [None] views of trap 5: word alignment at B = 1). Prints per
+    kernel the error, the CUDA-event ms and the device-only ms; returns
+    the errors by kernel."""
     import dsv1_tpu_torch as dt
     from dsv1_tpu_torch.ops import hme_kernels as hk
     h, w = frames[0][0].shape
     enc = dt.Encoder(dt.Metadata(w, h, dt.SUBSAMP_420),
-                     dt.EncoderConfig(gop=12, stable_refresh=11), device=dev)
+                     dt.EncoderConfig(gop=12, stable_refresh=11,
+                                      effort=effort), device=dev)
     enc.start()
     calls = []
     for f in frames[:2]:
         enc.encode(f, calls=calls)
-    (cargs,) = [a for name, a in calls if name == "hme_coarse"]
-    (bargs,) = [a for name, a in calls if name == "hme_base"]
-    out = {"phase": "sequential", "check": "hme_b1",
-           "shape": f"{w}x{h} B={bargs[0].shape[0]} levels {enc._levels}"}
-    for name, kern, plain in (
-            ("hme_refine", lambda: hk.refine_coarse(*cargs),
-             lambda: hk.refine_coarse_plain(*cargs)),
-            ("hme_base", lambda: hk.refine_base_cm(*bargs),
-             lambda: base_plain(bargs))):
-        out[name] = {"max_abs_err": max_abs_err(kern(), plain()),
-                     "ms": cuda_ms(kern, 20), "device_ms": device_ms(kern, 20)}
+    args = dict(calls)
+    if len(args) != len(calls):
+        raise AssertionError(f"more than one P frame's calls: {calls}")
+    kerns = [("hme_refine", "hme_coarse", hk.refine_coarse,
+              hk.refine_coarse_plain)]
+    kerns += [("hme_base", "hme_base", hk.refine_base_cm,
+               lambda *a: base_plain(a))] \
+        if effort == 0 else \
+        [("hme_refine_level0", "hme_level0", hk.refine_level,
+          hk.refine_level_plain),
+         ("hme_wide", "hme_wide", hk.refine_wide, hk.refine_wide_plain)]
+    out = {"phase": "effort" if effort else "sequential", "check": "hme_b1",
+           "shape": f"{w}x{h} B={args['hme_coarse'][0][0].shape[0]} "
+                    f"levels {enc._levels} effort {effort}"}
+    for name, call, kern, plain in kerns:
+        a = args[call]
+        out[name] = {"max_abs_err": max_abs_err(kern(*a), plain(*a)),
+                     "ms": cuda_ms(lambda: kern(*a), 20),
+                     "device_ms": device_ms(lambda: kern(*a), 20)}
     emit(out)
-    for name in ("hme_refine", "hme_base"):
+    for name, *_ in kerns:
         if out[name]["max_abs_err"] != 0:
             raise AssertionError(f"kernel {name} disagrees with its plain "
-                                 "version at B = 1")
+                                 f"version at B = 1, effort {effort}")
+    return {name: out[name]["max_abs_err"] for name, *_ in kerns}
 
 
 def phase_sequential(dev, smi, golden, clips):
@@ -893,9 +976,9 @@ def phase_sequential(dev, smi, golden, clips):
     with tempfile.TemporaryDirectory() as td:
         inp, dsv, out = (Path(td) / f for f in ("in.yuv", "s.dsv", "o.yuv"))
         for name, enc_kernels, enc_absent in (
-                (SEQ_CLIP, KERNELS, ()),
+                (SEQ_CLIP, BASE_PATH, ("hme_wide",)),
                 (GOP0_CLIP, ("haar_fwd",), ("mc", "hme_refine",
-                                            "hme_base"))):
+                                            "hme_base", "hme_wide"))):
             gold = golden[name]
             yuv, _frames = clips[name]
             if sha(yuv) != gold["clip_sha256"]:
@@ -938,6 +1021,218 @@ def phase_sequential(dev, smi, golden, clips):
     return total
 
 
+def check_effort_kernels(dev, frames, seed):
+    """Kernel #2 at level 0 and `refine_wide` against their plain
+    versions on the first GOP of a clip at effort 3: on `hme_batch`'s
+    own arguments, and on edge candidates and an edge `pre`; the wide
+    search at efforts 1, 2 and 3 on both `pre`. Returns (level-0 error,
+    wide error, the level-0 and wide arguments, the encoder)."""
+    import numpy as np
+
+    from dsv1_tpu_torch.ops import hme_kernels as hk
+    from dsv1_tpu_torch.utils.edges import edge_cands, edge_pre
+    enc, _imgs, _mv, calls = gop_motion(dev, frames, effort=3)
+    (largs,) = [a for name, a in calls if name == "hme_level0"]
+    (wargs,) = [a for name, a in calls if name == "hme_wide"]
+    rng = np.random.default_rng(seed)
+    B = largs[0].shape[0]
+    p = enc.layouts[0].planes[0]
+    geo = (enc.nbh, enc.nbv, p.w, p.h, enc.blk_w, enc.blk_h)
+    fl = (*largs[:2], *edge_cands(rng, dev, B, *geo, p.ext), *largs[4:])
+    err_l = max(max_abs_err(hk.refine_level(*a), hk.refine_level_plain(*a))
+                for a in (largs, fl))
+    err_w = 0
+    for pre in (wargs[7], edge_pre(rng, dev, B, *geo)):
+        for effort in (1, 2, 3):
+            a = (*wargs[:7], pre, effort)
+            err_w = max(err_w, max_abs_err(hk.refine_wide(*a),
+                                           hk.refine_wide_plain(*a)))
+    return err_l, err_w, largs, wargs, enc
+
+
+def effort_rows(dev, bound, clips):
+    """The kernel rows of kernel #2 at level 0 and of `hme_wide`: errors
+    at 1080p and 4K (check_effort_kernels) and at B = 1 on the
+    sequential Encoder's arguments (check_seq_hme at effort 2), times
+    and bounds on the 1080p GOP's arguments at effort 3, the 4K times
+    beside them."""
+    from dsv1_tpu_torch.ops import hme_kernels as hk
+    b1 = check_seq_hme(dev, clips[EFFORT_SEQ_CLIP][1], effort=2)
+    out = {}
+    for tag, clip, seed in (("1080p", "1080p_effort_cli", 21),
+                            ("4k", "4k_effort_cli", 22)):
+        err_l, err_w, largs, wargs, enc = check_effort_kernels(
+            dev, clips[clip][1], seed)
+        reps = 20 if tag == "1080p" else 10
+        lk = lambda: hk.refine_level(*largs)  # noqa: E731
+        wk = lambda: hk.refine_wide(*wargs)  # noqa: E731
+        out[tag] = {
+            "err_l": err_l, "err_w": err_w,
+            "l": (cuda_ms(lk, reps), device_ms(lk, reps),
+                  cuda_ms(lambda: hk.refine_level_plain(*largs), 2),
+                  hme_bounds(work_hme_level(largs), bound)),
+            "w": (cuda_ms(wk, reps), device_ms(wk, reps),
+                  cuda_ms(lambda: hk.refine_wide_plain(*wargs), 2),
+                  hme_bounds(work_hme_wide(wargs), bound)),
+            "w12": [cuda_ms(lambda e=e: hk.refine_wide(*wargs[:-1], e), reps)
+                    for e in (1, 2)],
+            "shape": f"B={largs[0].shape[0]} nb={enc.nbh * enc.nbv} "
+                     f"{enc.blk_w}x{enc.blk_h}"}
+    rows = []
+    for name, key, replaces in (
+            ("hme_refine_level0", "l", "dsv1_tpu/ops/pallas_hme.py:130"),
+            ("hme_wide", "w", "dsv1_tpu/ops/hme.py:324 (XLA refine_base "
+                              "with pre, effort > 0; no Pallas kernel)")):
+        e1, e4 = out["1080p"], out["4k"]
+        ms, dev_ms, plain_ms, (b_ms, b_by, b_extra) = e1[key]
+        ms4, dev_ms4, plain_ms4, (b_ms4, _by, _x) = e4[key]
+        err = max(e1["err_" + key], e4["err_" + key], b1[name])
+        extra = {"ms_effort1_2": e1["w12"], "ms_4k_effort1_2": e4["w12"]} \
+            if key == "w" else {}
+        rows.append(row(name, "dsv1_tpu_torch/csrc/hme.cu", replaces, err,
+                        ms, plain_ms, b_ms, b_by,
+                        shape=f"1080p GOP {e1['shape']}, effort 3; *_4k: "
+                              f"4K GOP {e4['shape']}; errors also on edge "
+                              "inputs, at B = 1 (sequential Encoder, "
+                              "effort 2) and, for hme_wide, efforts 1 and "
+                              "2",
+                        device_ms=dev_ms, ms_4k=ms4, device_ms_4k=dev_ms4,
+                        plain_ms_4k=plain_ms4, bound_ms_4k=b_ms4,
+                        **b_extra, **extra))
+    for r in rows:
+        emit({"phase": "effort", **r})
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"kernel {r['name']} disagrees with its "
+                                 "plain version")
+    return rows
+
+
+def check_recon(path, last, recon, layout):
+    """A decoder's last frame `last` (y, u, v) equals the Encoder's
+    reconstruction of it (`recon`, a flat image in `layout`)."""
+    import numpy as np
+
+    from dsv1_tpu_torch.ops import frame as fr
+    want = [fr.plane_view(recon, layout, c).cpu().numpy() for c in range(3)]
+    if not all(np.array_equal(np.asarray(a), b) for a, b in zip(last, want)):
+        raise AssertionError(f"{path}: the decoded last frame differs from "
+                             "the encoder's reconstruction")
+
+
+def check_seq_recon(dev, frames, effort):
+    """Both decoders' last frame (the sequential `Decoder` and
+    `iter_decode_gops`) against the sequential Encoder's reconstruction
+    of it, on a CRF encode of the clip at `effort` through the API."""
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.ops import frame as fr
+    from dsv1_tpu_torch.utils.golden import GOP, QUALITY_PCT
+    h, w = frames[0][0].shape
+    enc = dt.Encoder(dt.Metadata(w, h, dt.SUBSAMP_420), dt.EncoderConfig(
+        quality=dt.quality_percent(QUALITY_PCT), gop=GOP,
+        stable_refresh=GOP - 1, effort=effort), device=dev)
+    enc.start()
+    stream = enc.encode_stream(frames)
+    recon = torch.from_numpy(enc.state_dict()["ref_recon"])
+    lay = fr.make_layout(dt.SUBSAMP_420, w, h, True)
+    for path, dec in (
+            ("Decoder", list(dt.Decoder(device=dev).decode_stream(stream))),
+            ("iter_decode_gops", list(dt.iter_decode_gops(stream,
+                                                          device=dev)))):
+        check_recon(f"{w}x{h} effort {effort} {path}", dec[-1][1], recon,
+                    lay)
+    emit({"phase": "effort", "check": "decoders_match_encoder_recon",
+          "size": f"{w}x{h}", "frames": len(frames), "effort": effort,
+          "ok": True})
+
+
+def phase_effort(dev, bound, smi, golden, clips):
+    """Main path 4: the wider level-0 search (effort 1..3). First kernel
+    #2 at level 0 and `hme_wide` against their plain versions
+    (effort_rows), and both decoders' last frame against the sequential
+    Encoder's reconstruction on `1080p_effort_seq_cli`'s clip
+    (check_seq_recon); then the three effort clips through the CLI and
+    files on the card, each encode and decode against its golden and
+    its launches against the prediction (`hme_base` absent, `hme_wide`
+    present), and `1080p_effort_seq_cli` also through the `Decoder`
+    API. Returns (rows, the launches summed over the phase's paths)."""
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch import cli
+    from dsv1_tpu_torch.kernels.build import LAUNCHES
+    from dsv1_tpu_torch.utils.golden import (cli_decode_args,
+                                             cli_encode_args, decoded_bytes)
+    from dsv1_tpu_torch.utils.stats import STATS
+
+    rows = effort_rows(dev, bound, clips)
+    check_seq_recon(dev, clips[EFFORT_SEQ_CLIP][1], 2)
+    total = {}
+
+    def run(path, fn, w, h, kernels=(), absent=()):
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        STATS.clear()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = dict(LAUNCHES)
+        check_launches(path, got, kernels, absent)
+        check_predicted(path, got, STATS, w, h)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return secs, got, dict(STATS), result
+
+    def cli_ok(argv):
+        if cli.main(argv, device=dev) != 0:
+            raise AssertionError(f"CLI {argv[0]} failed: {argv}")
+
+    with tempfile.TemporaryDirectory() as td:
+        inp, dsv, out = (Path(td) / f for f in ("in.yuv", "s.dsv", "o.yuv"))
+        for name in EFFORT_CLIPS:
+            gold = golden[name]
+            w, h, n = gold["width"], gold["height"], gold["frames"]
+            yuv, _frames = clips[name]
+            if sha(yuv) != gold["clip_sha256"]:
+                raise AssertionError(f"{name}: input clip differs from the "
+                                     "golden clip")
+            inp.write_bytes(yuv)
+            t_enc, l_enc, st, _ = run(
+                f"{name} encode", lambda: cli_ok(cli_encode_args(
+                    name, inp, dsv)), w, h, WIDE_PATH, ("hme_base",))
+            stream = dsv.read_bytes()
+            t_dec, l_dec, _, _ = run(f"{name} decode", lambda: cli_ok(
+                cli_decode_args(dsv, out)), w, h, ("mc",))
+            res = {"phase": "effort", "clip": name, "size": f"{w}x{h}",
+                   "frames": n, "argv": gold["argv"],
+                   "stream_bytes": len(stream),
+                   "stream_sha256_ok": sha(stream) == gold["stream_sha256"],
+                   "decode_sha256_ok": sha(out.read_bytes())
+                   == gold["decode_sha256"],
+                   "encode_fps": n / t_enc, "decode_fps": n / t_dec,
+                   "encode_launches": l_enc, "decode_launches": l_dec,
+                   "launches_as_predicted": True,
+                   "hme_calls_wide": st.get("hme_calls_wide", 0),
+                   "overflow_redos": st.get("overflow_redos", 0)}
+            if name == EFFORT_SEQ_CLIP:
+                t_api, l_api, _, dec = run(f"{name} Decoder", lambda: list(
+                    dt.Decoder(device=dev).decode_stream(stream)), w, h,
+                    ("mc",))
+                res.update(api_decode_sha256_ok=sha(decoded_bytes(dec))
+                           == gold["decode_sha256"],
+                           api_decode_fps=n / t_api,
+                           api_decode_launches=l_api)
+            res["card"] = smi
+            emit(res)
+            bad = [k for k, v in res.items() if k.endswith("_ok") and not v]
+            if bad:
+                raise AssertionError(f"{name}: {bad} differ from the golden")
+    emit({"phase": "effort", "launches": total})
+    return rows, total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -963,8 +1258,12 @@ def main():
     slice_l = phase_slice(dev, smi, golden, clips)
     cli_l = phase_cli(dev, smi, golden, clips)
     seq_l = phase_sequential(dev, smi, golden, clips)
-    path_launches = {k: slice_l[k] + seq_l.get(k, 0)
-                     + cli_l[GOPABR_CLIP].get(k, 0) for k in KERNELS}
+    effort_r, effort_l = phase_effort(dev, Bound(clock_hz), smi, golden,
+                                      clips)
+    rows += effort_r
+    path_launches = {k: slice_l.get(k, 0) + seq_l.get(k, 0)
+                     + cli_l[GOPABR_CLIP].get(k, 0) + effort_l.get(k, 0)
+                     for k in KERNELS}
     path_launches["hme_base_banded"] = cli_l["4k_cli"]["hme_base"]
     for r in rows:
         r["launches"] = path_launches[r["name"]]

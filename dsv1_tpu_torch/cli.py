@@ -13,7 +13,8 @@ path (per-frame ABR or CRF, gop 0 under CRF) with frames read from disk
 GOP by GOP, or the sequential `Encoder` frame by frame for -gopar0,
 gop > 4096 and ABR at gop 0. Decode streams chain by chain, or runs the
 sequential `Decoder` with -drawinfo. -gopabr1 picks GOP-granular ABR on
-the GOP-parallel path; effort > 0 exits with code 2, "not ported yet".
+the GOP-parallel path; -effort1..3 widens the level-0 motion search on
+every encode path.
 `main(argv, device)` runs on the card unless the caller passes
 device="cpu".
 """
@@ -38,7 +39,6 @@ HEADER = ("DSV1 codec driver (dsv1_tpu_torch: PyTorch/CUDA, "
 AUTO_BITRATE = 0
 INP_FMTS = {0: C.SUBSAMP_444, 1: C.SUBSAMP_422, 2: C.SUBSAMP_420,
             3: C.SUBSAMP_411}
-NOT_PORTED = 2   # exit code of an option the port does not run yet
 
 
 def pct_to_qual(v):
@@ -98,8 +98,8 @@ def enc_params():
               "GOP-parallel device encode (0 = the sequential encoder). "
               "1 = default"),
         Param("effort", 0, 0, 3, None,
-              "motion search effort beyond the reference. 0 = reference "
-              "parity (> 0: not ported yet)"),
+              "motion search effort beyond the reference (exhaustive "
+              "+-2*effort full-pel window). 0 = reference parity"),
         Param("gopabr", 0, 0, 1, None,
               "GOP-granular ABR rate feedback. 0 = default: the per-frame "
               "ABR law, byte-identical to the reference"),
@@ -170,12 +170,6 @@ def _get(params, name):
     return 0
 
 
-def _not_ported(what: str) -> int:
-    print(f"{what}: not ported yet (the JAX package's CLI runs it)",
-          file=sys.stderr)
-    return NOT_PORTED
-
-
 @contextlib.contextmanager
 def _profile(path):
     """torch.profiler over the block, its trace written to path/."""
@@ -228,8 +222,6 @@ def encode_main(argv, device="cuda") -> int:
     par_rc = rc_mode == C.RATE_CONTROL_CRF or gop > 0
     use_par = bool(_get(params, "gopar")) and gop <= 4096 and par_rc
     abr_mode = "gop" if _get(params, "gopabr") else "exact"
-    if _get(params, "effort"):
-        return _not_ported("-effort > 0")
     cfg = EncoderConfig(
         quality=quality, gop=gop, do_scd=bool(_get(params, "scd")),
         rc_mode=rc_mode,
@@ -239,7 +231,8 @@ def encode_main(argv, device="cuda") -> int:
         min_I_frame_quality=_get(params, "iminqp"),
         intra_pct_thresh=_get(params, "ipct"),
         scene_change_delta=_get(params, "schdelta"),
-        stable_refresh=stabref, pyramid_levels=_get(params, "pyrlevels"))
+        stable_refresh=stabref, pyramid_levels=_get(params, "pyrlevels"),
+        effort=_get(params, "effort"))
     frno = _get(params, "sfr")
     nfr = _get(params, "nfr")
     maxframe = frno + nfr if nfr > 0 else -1

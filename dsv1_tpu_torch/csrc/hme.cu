@@ -20,6 +20,13 @@
 //     (hme.c:543-716). -> hme_base_kernel. The band exists on the TPU
 //     only to fit VMEM; with E = 64 its clamp never binds, so one kernel
 //     serves both.
+// and, with no Pallas kernel behind it, the XLA level 0 of effort 1..3
+// (the JAX package's refine_base with `pre`, dsv1_tpu/ops/hme.py:324-420,
+// after `_refine_kernel` at level 0 gives dx, dy, best): an exhaustive
+// +-2 effort full-pel window around (dx, dy) scanned raster with strict
+// improvement, a +-(1 + effort) half-pel grid in place of the 8
+// neighbours, then the same luma cascade. -> hme_wide_kernel
+// (`dsv1_hme_wide`).
 //
 // Bound on an H100: integer work and latency, not bytes. A 1080p GOP's
 // level 0 (11 pairs, 690 blocks of 64x48) reads 54 MB of planes at most
@@ -60,6 +67,22 @@
 //   exactly as the Pallas bodies clamp (the C reference reads out of
 //   bounds there); picks are strict first minima in candidate order;
 //   unsigned arithmetic is plain uint32_t.
+// - hme_wide_kernel stages the block as hme_base_kernel does and the
+//   (BH + 2R) x (BW + 2R) window around (dx, dy) in shared memory, read
+//   from the flat level-0 image as the JAX gather reads it (a row past
+//   the right edge runs on into the next row, rows below the plane are
+//   the chroma planes' bytes, offsets before the image clip to its first
+//   chunk): with 64-pixel blocks the window leaves the extended plane.
+//   Each thread sums its word column against the 2R + 1 shifts of each
+//   offset row from 2 + R/2 words (funnel shifts), a warp sum per
+//   offset; the raster scan's strict first improvement is the least
+//   (SAD, offset index) key. The half-pel grid (up to 80 points, +-2
+//   pixels) reads a 21 x 21 neighbourhood, filtered once; warp 0 takes
+//   the least (SAD, point) key and finishes with hme_base_kernel's code.
+//   At effort 3 a 4K GOP (11 pairs, 2,040 blocks of 64x64) compares
+//   15.4 G pixel pairs; counted as the other bounds here (3 operations
+//   a pair, four pairs to an instruction, with the statistics), that is
+//   0.78 ms of INT32 work (chip_smoke.py work_hme_wide).
 // - Launch shape: kNT = 128 threads and __launch_bounds__(128, 8)
 //   (kMinBlocks), for both search kernels. Of seven (threads, blocks per
 //   SM) shapes it was the fastest at 64x48 (1080p) and 64x64 (4K) blocks
@@ -68,9 +91,13 @@
 //   copies of this file): the level-0 kernel is latency-bound, and at
 //   its natural 144 registers only 3 blocks fit an SM; capped at 64 it
 //   runs 8 and spills 68 bytes.
+//   hme_wide_kernel keeps its window SADs' 2R + 1 sums in registers and
+//   takes __launch_bounds__(128, 4) (kWideMinBlocks): not tuned.
 //   ptxas -v (sm_90a): hme_base_kernel 64 registers, 68 B spill stores
 //   and loads, 10,680 B shared; hme_level_kernel 56 registers, no
-//   spills, 288 B shared; hme_cands_kernel 26 registers.
+//   spills, 288 B shared; hme_cands_kernel 26 registers;
+//   hme_wide_kernel at effort 1 / 2 / 3 96 / 102 / 112 registers, no
+//   spills, 16,888 / 18,472 / 20,632 B shared.
 
 #include "common.cuh"
 
@@ -89,6 +116,10 @@ constexpr int kHP = 14;              // HP_SAD_SZ
 constexpr int kNB = 24;              // half-pel neighbourhood (its clamp)
 constexpr int kNU = 18;              // the part of it the filters read
 constexpr int kPS = 16;              // row stride of the filtered planes
+// the wide search's half-pel neighbourhood: its +-2-pixel grid and the
+// 4-tap filters read 21 x 21 pixels 3 before the centre window
+constexpr int kNUW = 21, kPSW = 20;
+constexpr int kWideMinBlocks = 4;    // hme_wide_kernel's launch bound
 constexpr unsigned kOnes = 0x01010101u;
 
 __constant__ int XF[9] = {0, 1, -1, 0, 0, -1, 1, -1, 1};
@@ -418,51 +449,38 @@ __global__ void hme_cands_kernel(const int* prev, int nbh, int nbv,
   }
 }
 
+// The six per-block outputs of level 0, each (B, nb).
+struct Outs {
+  int *mvx, *mvy, *flags, *qbits, *ltex, *svar;
+};
+
 struct BaseArgs {
   const uint8_t* src;
   const uint8_t* ref;
   const int* cm;             // (B, nb, 2 NC)
   int64_t pstride;
   int EH, S, E, w, h, nbh_l, nb, BW, BH, NC;
-  int *mvx, *mvy, *flags, *qbits, *ltex, *svar;
+  Outs out;
 };
 
-// Half-pel point k's 14x14 window in the filtered planes (row stride kPS):
-// h8 at (2, 1 + (xh >> 1)), v8 at (1 + (yh >> 1), 2), d8 at
-// (1 + (yh >> 1), 1 + (xh >> 1)), as the plain version slices them.
-__device__ __forceinline__ const uint8_t* hp_window(int k, const uint8_t* h8,
-                                                    const uint8_t* v8,
-                                                    const uint8_t* d8) {
-  const int xh = XH[k], yh = YH[k];
-  if ((xh & 1) && (yh & 1)) return d8 + (1 + (yh >> 1)) * kPS + 1 + (xh >> 1);
-  if (xh & 1) return h8 + 2 * kPS + 1 + (xh >> 1);
-  return v8 + (1 + (yh >> 1)) * kPS + 2;
-}
+// The block sums of pass 1 that do not depend on the search, after the
+// kMaxNC candidate SADs in one array: block and zero-MV sums, squares and
+// gradients, the quadrant good/evil metric, the 14x14 source statistics.
+enum Sum { LS = kMaxNC, LSS, LSH, LSV, ZS, ZSS, G0, G1, G2, G3, E0, E1, E2,
+           E3, SS, SSS, SSH, SSV, N1 };
 
-__global__ void __launch_bounds__(kNT, kMinBlocks)
-    hme_base_kernel(BaseArgs a) {
-  constexpr int R = kRows, kW = kWarpsNT;
-  __shared__ unsigned s_src[kMaxBlk * kMaxWpr], s_zero[kMaxBlk * kMaxWpr];
-  __shared__ uint8_t s_c14[kHP * kHP];
-  __shared__ uint8_t s_nb[kNU * kNU];
-  __shared__ short s_hu[kNU * kPS];
-  __shared__ uint8_t s_h8[kNU * kPS], s_v8[15 * kPS], s_d8[15 * kPS];
-  enum { LS = kMaxNC, LSS, LSH, LSV, ZS, ZSS, G0, G1, G2, G3, E0, E1, E2, E3,
-         SS, SSS, SSH, SSV, N1 };
-  __shared__ unsigned red1[N1 * kW], red2[10 * kW];
-  __shared__ int s_cand[2 * kMaxNC], s_a8[8];
-  const int t = blockIdx.x, bb = blockIdx.y, tid = threadIdx.x;
-  const int S = a.S, E = a.E, EH = a.EH, BW = a.BW, BH = a.BH, NC = a.NC;
-  const uint8_t* sp = a.src + bb * a.pstride;
-  const uint8_t* rp = a.ref + bb * a.pstride;
-  const Block b = block_of(t, a.nbh_l, BW, BH, a.w, a.h);
-  const Lanes m = lanes_of(BW, b);
+// Stages a block: its source and zero-MV words (s, z, and in shared
+// memory s_src, s_zero) and its 14x14 source centre s_c14, from the
+// (EH, S) planes sp and rp at origins clamped as the Pallas bodies clamp.
+// The caller synchronises.
+template <int R>
+__device__ __forceinline__ void stage_block(
+    const uint8_t* sp, const uint8_t* rp, int S, int E, int EH, int BW,
+    int BH, const Block& b, const Lanes& m, unsigned (&s)[R],
+    unsigned (&z)[R], unsigned* s_src, unsigned* s_zero, uint8_t* s_c14) {
   const int wpr = BW >> 2;
-
-  // --- stage: source and zero-MV windows (words), 14x14 centre, cands
   const int zr = clampi(E + b.by, 0, (EH - BH) & ~7);
   const int zc = clampi(E + b.bx, 0, S - BW);
-  unsigned s[R], z[R];
   load_words(s, sp, S, zr, zc, m);
   load_words(z, rp, S, zr, zc, m);
 #pragma unroll
@@ -475,31 +493,25 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
   }
   const int cx = b.bx + (b.bw_c >> 1) - kHP / 2;
   const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
-  {
-    const uint8_t* c14 = sp + (int64_t)clampi(E + cy, 0, EH - kHP) * S +
-                         clampi(E + cx, 0, S - kHP);
-    for (int p = tid; p < kHP * kHP; p += kNT) {
-      const int i = p / kHP;
-      s_c14[p] = __ldg(c14 + (int64_t)i * S + p - i * kHP);
-    }
+  const uint8_t* c14 = sp + (int64_t)clampi(E + cy, 0, EH - kHP) * S +
+                       clampi(E + cx, 0, S - kHP);
+  for (int p = threadIdx.x; p < kHP * kHP; p += kNT) {
+    const int i = p / kHP;
+    s_c14[p] = __ldg(c14 + (int64_t)i * S + p - i * kHP);
   }
-  if (tid < NC) {
-    const int* c = a.cm + ((int64_t)bb * a.nb + t) * 2 * NC;
-    s_cand[tid] = c[tid];
-    s_cand[NC + tid] = c[NC + tid];
-  }
-  __syncthreads();
+}
 
-  // --- pass 1: candidate SADs and every search-independent sum
-  unsigned v[N1];
-#pragma unroll
-  for (int k = 0; k < N1; ++k) v[k] = 0;
-#pragma unroll
-  for (int k = 0; k < kMaxNC; ++k) {
-    if (k >= NC) break;
-    v[k] = window_sad(rp, S, clampi(E + b.by + s_cand[NC + k], 0, EH - BH),
-                      clampi(E + b.bx + s_cand[k], 0, S - BW), s, m);
-  }
+// This thread's part of the search-independent sums (v[LS..SSV]) over its
+// staged words; needs the staged block in shared memory.
+template <int R, int N>
+__device__ __forceinline__ void block_sums(unsigned (&v)[N],
+                                           const unsigned (&s)[R],
+                                           const unsigned (&z)[R],
+                                           const Lanes& m, const Block& b,
+                                           int BW, const unsigned* s_src,
+                                           const unsigned* s_zero,
+                                           const uint8_t* s_c14) {
+  const int wpr = BW >> 2;
   const int sbw = b.bw_c / 2, sbh = b.bh_c / 2;
   const unsigned cml = col_mask(m.wc, 1, b.bw_c);
   const unsigned q0 = col_mask(m.wc, 0, sbw);
@@ -553,7 +565,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
       }
     }
   }
-  for (int p = tid; p < kHP * kHP; p += kNT) {
+  for (int p = threadIdx.x; p < kHP * kHP; p += kNT) {
     const int i = p / kHP, j = p - i * kHP;
     const int sv = s_c14[p];
     v[SS] += sv;
@@ -561,18 +573,14 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
     if (j >= 1) v[SSH] += absi(sv - s_c14[p - 1]);
     if (i >= 1) v[SSV] += absi(sv - s_c14[p - kHP]);
   }
-  block_sum_u(v, red1);
-  int bdx, bdy;
-  pick_cand(v, s_cand, NC, 0, b, a.w, a.h, bdx, bdy);
+}
 
-  // --- pass 2: 9-point refine and block_intra_test (hme.c:143-178): a
-  // pixel survives a DC-only block iff s - ravg0 lies in [-128, 127]
-  const int yarea = b.bw_c * b.bh_c;
-  const int area = max(yarea, 1);
-  const int ravg0 = (int)v[ZS] / area;
-  unsigned v2[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-  refine9(rp, S, clampi(E + b.by + bdy - 1, 0, EH - (BH + 2)),
-          clampi(E + b.bx + bdx - 1, 0, S - (BW + 2)), s, m, v2);
+// This thread's count of block_intra_test failures (hme.c:143-178): a
+// pixel survives a DC-only block iff s - ravg0 lies in [-128, 127].
+template <int R>
+__device__ __forceinline__ unsigned intra_fails(const unsigned (&s)[R],
+                                                const Lanes& m, int ravg0) {
+  unsigned n = 0;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = m.r0 + i * m.step;
@@ -580,83 +588,83 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int d = (int)((s[i] >> (8 * j)) & 255u) - ravg0;
-      v2[9] += ((m.cm >> (8 * j)) & 1u) && (d < -128 || d > 127);
+      n += ((m.cm >> (8 * j)) & 1u) && (d < -128 || d > 127);
     }
   }
-  block_sum_u(v2, red2);
-  int best, m9;
-  pick9(v2, best, m9);
-  const int dx = bdx + XF[m9], dy = bdy + YF[m9];
+  return n;
+}
 
-  // --- half-pel refine (hme.c:543-597): filter the neighbourhood once
-  {
-    const uint8_t* nbp = rp +
-                         (int64_t)clampi(E + cy + dy - 2, 0, EH - kNB) * S +
-                         clampi(E + cx + dx - 2, 0, S - kNB);
-    for (int p = tid; p < kNU * kNU; p += kNT) {
-      const int i = p / kNU;
-      s_nb[p] = __ldg(nbp + (int64_t)i * S + p - i * kNU);
-    }
+// Filters the NU x NU half-pel neighbourhood at (r0, c0) of the (EH, S)
+// plane rp once into shared memory (row stride PS): hu (NU rows, NU - 3
+// columns) with h8 = its clamp, v8 (NU - 3 rows, PS columns) and d8
+// (NU - 3 square), as the plain version's hu/h8/v8/d8. Synchronises.
+template <int NU, int PS>
+__device__ __forceinline__ void filter_nb(const uint8_t* rp, int S, int r0,
+                                          int c0, uint8_t* s_nb,
+                                          short* s_hu, uint8_t* s_h8,
+                                          uint8_t* s_v8, uint8_t* s_d8) {
+  constexpr int NF = NU - 3;
+  const int tid = threadIdx.x;
+  const uint8_t* nbp = rp + (int64_t)r0 * S + c0;
+  for (int p = tid; p < NU * NU; p += kNT) {
+    const int i = p / NU;
+    s_nb[p] = __ldg(nbp + (int64_t)i * S + p - i * NU);
   }
   __syncthreads();
-  // hu (rows 0..17, cols 0..14) with h8 = its clamp, v8 (rows 0..14)
-  for (int p = tid; p < kNU * 15 + 15 * kPS; p += kNT) {
-    if (p < kNU * 15) {
-      const int i = p / 15, j = p - i * 15;
-      const uint8_t* n = s_nb + i * kNU + j;
+  for (int p = tid; p < NU * NF + NF * PS; p += kNT) {
+    if (p < NU * NF) {
+      const int i = p / NF, j = p - i * NF;
+      const uint8_t* n = s_nb + i * NU + j;
       const int hu = 9 * (n[1] + n[2]) - (n[0] + n[3]);
-      s_hu[i * kPS + j] = (short)hu;
-      s_h8[i * kPS + j] = (uint8_t)clampi((hu + 8) >> 4, 0, 255);
+      s_hu[i * PS + j] = (short)hu;
+      s_h8[i * PS + j] = (uint8_t)clampi((hu + 8) >> 4, 0, 255);
     } else {
-      const int q = p - kNU * 15, i = q / kPS, j = q - i * kPS;
-      const uint8_t* n = s_nb + i * kNU + j;
-      const int vv = 9 * (n[kNU] + n[2 * kNU]) - (n[0] + n[3 * kNU]);
+      const int q = p - NU * NF, i = q / PS, j = q - i * PS;
+      const uint8_t* n = s_nb + i * NU + j;
+      const int vv = 9 * (n[NU] + n[2 * NU]) - (n[0] + n[3 * NU]);
       s_v8[q] = (uint8_t)clampi((vv + 8) >> 4, 0, 255);
     }
   }
   __syncthreads();
-  for (int p = tid; p < 15 * 15; p += kNT) {  // d8 (rows, cols 0..14)
-    const int i = p / 15, j = p - i * 15;
-    const short* u = s_hu + i * kPS + j;
-    const int d = 9 * (u[kPS] + u[2 * kPS]) - (u[0] + u[3 * kPS]);
-    s_d8[i * kPS + j] = (uint8_t)clampi((d + 128) >> 8, 0, 255);
+  for (int p = tid; p < NF * NF; p += kNT) {
+    const int i = p / NF, j = p - i * NF;
+    const short* u = s_hu + i * PS + j;
+    const int d = 9 * (u[PS] + u[2 * PS]) - (u[0] + u[3 * PS]);
+    s_d8[i * PS + j] = (uint8_t)clampi((d + 128) >> 8, 0, 255);
   }
   __syncthreads();
-  const int lane = tid & 31, wid = tid >> 5;
-  for (int k = wid; k < 8; k += kW) {
-    const uint8_t* win = hp_window(k, s_h8, s_v8, s_d8);
-    unsigned acc = 0;
-    for (int p = lane; p < kHP * kHP; p += 32) {
-      const int i = p / kHP, j = p - i * kHP;
-      acc += absi((int)s_c14[p] - (int)win[i * kPS + j]);
-    }
-    acc = __reduce_add_sync(0xffffffffu, acc);
-    if (lane == 0) s_a8[k] = (int)acc;
-  }
-  __syncthreads();
-  if (wid != 0) return;  // warp 0 finishes the block
+}
 
-  const int yareasq = yarea * yarea;
-  const bool do_hp = best > BW * BH && b.inframe;
-  int run_best = best * (kHP * kHP) / area, run_m = -1;
-  for (int k = 0; k < 8; ++k) {
-    if (s_a8[k] < run_best) {
-      run_best = s_a8[k];
-      run_m = k;
-    }
-  }
-  const bool hp_hit = do_hp && run_m >= 0;
-  const int mvx = 2 * dx + (hp_hit ? XH[run_m] : 0);
-  const int mvy = 2 * dy + (hp_hit ? YH[run_m] : 0);
-  if (hp_hit) best = run_best * yarea / (kHP * kHP);
+// The 14x14 window of half-pel point (xh, yh) (half-pels from the
+// full-pel centre window, which starts 2 + pad pixels into the
+// neighbourhood): a filtered plane picked by the point's phase, at its
+// pixel offset (xh >> 1, yh >> 1), as the plain version slices them.
+// stride: its row stride.
+template <int NU, int PS>
+__device__ __forceinline__ const uint8_t* hp_win(
+    int xh, int yh, int pad, const uint8_t* s_nb, const uint8_t* s_h8,
+    const uint8_t* s_v8, const uint8_t* s_d8, int& stride) {
+  const int r = 2 + pad + (yh >> 1), c = 2 + pad + (xh >> 1);
+  stride = PS;
+  if ((xh & 1) && (yh & 1)) return s_d8 + (r - 1) * PS + c - 1;
+  if (xh & 1) return s_h8 + r * PS + c - 1;
+  if (yh & 1) return s_v8 + (r - 1) * PS + c;
+  stride = NU;
+  return s_nb + r * NU + c;
+}
 
-  // --- the chosen window's statistics (warp 0)
-  const uint8_t* sel = s_nb + 2 * kNU + 2;
-  int ss = kNU;
-  if (hp_hit) {
-    sel = hp_window(run_m, s_h8, s_v8, s_d8);
-    ss = kPS;
-  }
+// Warp 0 of a block, after the search: the chosen 14x14 window's
+// statistics (sel, rows ss apart), then the block metrics, the luma
+// GO_INTRA cascade and the quadrant metric from the pass-1 sums v and the
+// intra-test failures; lane 0 writes the outputs.
+template <int N>
+__device__ __forceinline__ void finish_block(const Outs& out, int64_t o,
+                                             const Block& b,
+                                             const unsigned (&v)[N],
+                                             unsigned fails, int best,
+                                             int mvx, int mvy, bool hp_hit,
+                                             const uint8_t* sel, int ss) {
+  const int lane = threadIdx.x & 31;
   unsigned rs = 0, rss = 0, rsh = 0, rsv = 0;
   for (int p = lane; p < kHP * kHP; p += 32) {
     const int i = p / kHP, j = p - i * kHP;
@@ -672,6 +680,9 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
   rsv = __reduce_add_sync(0xffffffffu, rsv);
   if (lane != 0) return;
 
+  const int yarea = b.bw_c * b.bh_c;
+  const int area = max(yarea, 1);
+  const int yareasq = yarea * yarea;
   const unsigned n14 = kHP * kHP;
   const int rtex = (int)(rsh + rsv) / 2 / (int)n14;
   const int ravg = (int)rs / (int)n14;
@@ -688,20 +699,302 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
       (stex < 2 && zvar > luma_var * 2u) ||
       rvar > (int)((unsigned)svar * 2u) || (stex == 0 && rtex != 0) ||
       absi(savg - ravg) > 8 || (luma_tex <= 10 && best > yareasq / 16);
+  const int sbw = b.bw_c / 2, sbh = b.bh_c / 2;
   const int ethr = (sbw + sbh) >> 1;
   int qb = 0;
 #pragma unroll
   for (int q = 0; q < 4; ++q)
     if (stex > 1 && (int)v[G0 + q] >= ethr * (int)v[E0 + q]) qb |= 1 << q;
 
+  out.mvx[o] = mvx;
+  out.mvy[o] = mvy;
+  out.flags[o] = (go_intra ? 1 : 0) | (fails > 0 ? 2 : 0) | (lo_tex ? 4 : 0) |
+                 (lo_var ? 8 : 0) | (hp_hit ? 16 : 0);
+  out.qbits[o] = qb;
+  out.ltex[o] = luma_tex;
+  out.svar[o] = svar;
+}
+
+__global__ void __launch_bounds__(kNT, kMinBlocks)
+    hme_base_kernel(BaseArgs a) {
+  constexpr int R = kRows, kW = kWarpsNT;
+  __shared__ unsigned s_src[kMaxBlk * kMaxWpr], s_zero[kMaxBlk * kMaxWpr];
+  __shared__ uint8_t s_c14[kHP * kHP];
+  __shared__ uint8_t s_nb[kNU * kNU];
+  __shared__ short s_hu[kNU * kPS];
+  __shared__ uint8_t s_h8[kNU * kPS], s_v8[(kNU - 3) * kPS],
+      s_d8[(kNU - 3) * kPS];
+  __shared__ unsigned red1[N1 * kW], red2[10 * kW];
+  __shared__ int s_cand[2 * kMaxNC], s_a8[8];
+  const int t = blockIdx.x, bb = blockIdx.y, tid = threadIdx.x;
+  const int S = a.S, E = a.E, EH = a.EH, BW = a.BW, BH = a.BH, NC = a.NC;
+  const uint8_t* sp = a.src + bb * a.pstride;
+  const uint8_t* rp = a.ref + bb * a.pstride;
+  const Block b = block_of(t, a.nbh_l, BW, BH, a.w, a.h);
+  const Lanes m = lanes_of(BW, b);
+
+  // --- stage: source and zero-MV windows (words), 14x14 centre, cands
+  unsigned s[R], z[R];
+  stage_block(sp, rp, S, E, EH, BW, BH, b, m, s, z, s_src, s_zero, s_c14);
+  if (tid < NC) {
+    const int* c = a.cm + ((int64_t)bb * a.nb + t) * 2 * NC;
+    s_cand[tid] = c[tid];
+    s_cand[NC + tid] = c[NC + tid];
+  }
+  __syncthreads();
+
+  // --- pass 1: candidate SADs and every search-independent sum
+  unsigned v[N1];
+#pragma unroll
+  for (int k = 0; k < N1; ++k) v[k] = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxNC; ++k) {
+    if (k >= NC) break;
+    v[k] = window_sad(rp, S, clampi(E + b.by + s_cand[NC + k], 0, EH - BH),
+                      clampi(E + b.bx + s_cand[k], 0, S - BW), s, m);
+  }
+  block_sums(v, s, z, m, b, BW, s_src, s_zero, s_c14);
+  block_sum_u(v, red1);
+  int bdx, bdy;
+  pick_cand(v, s_cand, NC, 0, b, a.w, a.h, bdx, bdy);
+
+  // --- pass 2: 9-point refine and block_intra_test
+  const int yarea = b.bw_c * b.bh_c;
+  const int area = max(yarea, 1);
+  const int ravg0 = (int)v[ZS] / area;
+  unsigned v2[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  refine9(rp, S, clampi(E + b.by + bdy - 1, 0, EH - (BH + 2)),
+          clampi(E + b.bx + bdx - 1, 0, S - (BW + 2)), s, m, v2);
+  v2[9] = intra_fails(s, m, ravg0);
+  block_sum_u(v2, red2);
+  int best, m9;
+  pick9(v2, best, m9);
+  const int dx = bdx + XF[m9], dy = bdy + YF[m9];
+
+  // --- half-pel refine (hme.c:543-597): filter the neighbourhood once
+  const int cx = b.bx + (b.bw_c >> 1) - kHP / 2;
+  const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
+  filter_nb<kNU, kPS>(rp, S, clampi(E + cy + dy - 2, 0, EH - kNB),
+                      clampi(E + cx + dx - 2, 0, S - kNB), s_nb, s_hu, s_h8,
+                      s_v8, s_d8);
+  const int lane = tid & 31, wid = tid >> 5;
+  for (int k = wid; k < 8; k += kW) {
+    int ws;
+    const uint8_t* win =
+        hp_win<kNU, kPS>(XH[k], YH[k], 0, s_nb, s_h8, s_v8, s_d8, ws);
+    unsigned acc = 0;
+    for (int p = lane; p < kHP * kHP; p += 32) {
+      const int i = p / kHP, j = p - i * kHP;
+      acc += absi((int)s_c14[p] - (int)win[i * ws + j]);
+    }
+    acc = __reduce_add_sync(0xffffffffu, acc);
+    if (lane == 0) s_a8[k] = (int)acc;
+  }
+  __syncthreads();
+  if (wid != 0) return;  // warp 0 finishes the block
+
+  const bool do_hp = best > BW * BH && b.inframe;
+  int run_best = best * (kHP * kHP) / area, run_m = -1;
+  for (int k = 0; k < 8; ++k) {
+    if (s_a8[k] < run_best) {
+      run_best = s_a8[k];
+      run_m = k;
+    }
+  }
+  const bool hp_hit = do_hp && run_m >= 0;
+  const int mvx = 2 * dx + (hp_hit ? XH[run_m] : 0);
+  const int mvy = 2 * dy + (hp_hit ? YH[run_m] : 0);
+  if (hp_hit) best = run_best * yarea / (kHP * kHP);
+  const uint8_t* sel = s_nb + 2 * kNU + 2;
+  int ss = kNU;
+  if (hp_hit)
+    sel = hp_win<kNU, kPS>(XH[run_m], YH[run_m], 0, s_nb, s_h8, s_v8, s_d8,
+                           ss);
+  finish_block(a.out, (int64_t)bb * a.nb + t, b, v, v2[9], best, mvx, mvy,
+               hp_hit, sel, ss);
+}
+
+// Byte f (any sign) of a flat image of nch chunks of 2^lcw bytes, read as
+// the JAX package's span_gather reads it: byte f mod 2^lcw of chunk
+// floor(f / 2^lcw) clipped to [0, nch).
+__device__ __forceinline__ uint8_t flat_byte(const uint8_t* img, int64_t f,
+                                             int lcw, int64_t nch) {
+  int64_t c = f >> lcw;  // arithmetic: floor for negative f
+  c = c < 0 ? 0 : (c >= nch ? nch - 1 : c);
+  return img[(c << lcw) + (f & ((1 << lcw) - 1))];
+}
+
+struct WideArgs {
+  const uint8_t* src;        // flat level-0 images of pair 0
+  const uint8_t* ref;
+  int64_t pstride, n, org;   // bytes between pairs; image bytes; the flat
+                             //   offset of frame pixel (0, 0)
+  int EH, S, E, w, h, lcw;   // extended plane, frame, log2 chunk width
+  int nbh_l, nb, BW, BH;
+  const int *dx, *dy, *best; // (B, nb): the candidate search's result
+  Outs out;
+};
+
+// One block's level 0 at effort kR / 2: the +-kR full-pel window around
+// the candidate search's (dx, dy), the +-(1 + effort) half-pel grid and
+// the luma cascade.
+template <int kR>
+__global__ void __launch_bounds__(kNT, kWideMinBlocks)
+    hme_wide_kernel(WideArgs a) {
+  constexpr int R = kRows, kW = kWarpsNT;
+  constexpr int kSide = 2 * kR + 1, kOff = kSide * kSide;
+  constexpr int kWinH = kMaxBlk + 2 * kR;
+  constexpr int kWinP = kMaxBlk + 2 * kR + 8;  // row pitch, bytes
+  constexpr int kWords = kR / 2 + 2;            // words a thread's row reads
+  constexpr int kRH = 1 + kR / 2, kHSide = 2 * kRH + 1;
+  constexpr int kPts = kHSide * kHSide - 1;     // 24, 48, 80
+  static_assert(kWinP % 4 == 0 && kPts < 256 && kOff < 256, "layout");
+  __shared__ unsigned s_src[kMaxBlk * kMaxWpr], s_zero[kMaxBlk * kMaxWpr];
+  __shared__ uint8_t s_c14[kHP * kHP];
+  __shared__ __align__(16) uint8_t s_win[kWinH * kWinP];
+  __shared__ unsigned s_part[kOff * kW];
+  __shared__ uint8_t s_nb[kNUW * kNUW];
+  __shared__ short s_hu[kNUW * kPSW];
+  __shared__ uint8_t s_h8[kNUW * kPSW], s_v8[(kNUW - 3) * kPSW],
+      s_d8[(kNUW - 3) * kPSW];
+  __shared__ unsigned red1[N1 * kW], red2[kW];
+  __shared__ int s_a[kPts];
+  const int t = blockIdx.x, bb = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, wid = tid >> 5;
+  const int S = a.S, E = a.E, EH = a.EH, BW = a.BW, BH = a.BH;
+  const uint8_t* sf = a.src + bb * a.pstride;
+  const uint8_t* rf = a.ref + bb * a.pstride;
+  const int64_t start = a.org - (int64_t)E * S - E;  // the (EH, S) plane
+  const uint8_t* sp = sf + start;
+  const uint8_t* rp = rf + start;
+  const Block b = block_of(t, a.nbh_l, BW, BH, a.w, a.h);
+  const Lanes m = lanes_of(BW, b);
   const int64_t o = (int64_t)bb * a.nb + t;
-  a.mvx[o] = mvx;
-  a.mvy[o] = mvy;
-  a.flags[o] = (go_intra ? 1 : 0) | (v2[9] > 0 ? 2 : 0) | (lo_tex ? 4 : 0) |
-               (lo_var ? 8 : 0) | (hp_hit ? 16 : 0);
-  a.qbits[o] = qb;
-  a.ltex[o] = luma_tex;
-  a.svar[o] = svar;
+  const int dx0 = a.dx[o], dy0 = a.dy[o], best0 = a.best[o];
+
+  // --- stage: the block as hme_base_kernel does, and the (BH + 2 kR) x
+  // (BW + 2 kR) window around (dx0, dy0) from the flat image
+  unsigned s[R], z[R];
+  stage_block(sp, rp, S, E, EH, BW, BH, b, m, s, z, s_src, s_zero, s_c14);
+  {
+    const int64_t f0 = a.org + (int64_t)(b.by + dy0 - kR) * S +
+                       (b.bx + dx0 - kR);
+    const int64_t nch = a.n >> a.lcw;
+    for (int p = tid; p < (BH + 2 * kR) * kWinP; p += kNT) {
+      const int r = p / kWinP, c = p - r * kWinP;
+      s_win[p] = flat_byte(rf, f0 + (int64_t)r * S + c, a.lcw, nch);
+    }
+  }
+  __syncthreads();
+
+  // --- the window's SADs: per offset row oy, this thread's word column
+  // against the kSide shifts of its row words; warp sums to s_part
+#pragma unroll 1
+  for (int oy = 0; oy < kSide; ++oy) {
+    unsigned acc[kSide];
+#pragma unroll
+    for (int ox = 0; ox < kSide; ++ox) acc[ox] = 0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = m.r0 + i * m.step;
+      if (r >= m.nrows) continue;
+      const unsigned* q =
+          reinterpret_cast<const unsigned*>(s_win + (r + oy) * kWinP) + m.wc;
+      unsigned wv[kWords];
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) wv[j] = q[j];
+#pragma unroll
+      for (int ox = 0; ox < kSide; ++ox) {
+        const unsigned w =
+            __funnelshift_r(wv[ox >> 2], wv[(ox >> 2) + 1], 8 * (ox & 3));
+        acc[ox] = sum4(absdiff4(s[i], w) & m.cm, acc[ox]);
+      }
+    }
+#pragma unroll
+    for (int ox = 0; ox < kSide; ++ox) {
+      const unsigned sum = __reduce_add_sync(0xffffffffu, acc[ox]);
+      if (lane == 0) s_part[(oy * kSide + ox) * kW + wid] = sum;
+    }
+  }
+
+  // --- the search-independent sums (one reduction, whose barrier also
+  // publishes s_part)
+  unsigned v[N1];
+#pragma unroll
+  for (int k = 0; k < N1; ++k) v[k] = 0;
+  block_sums(v, s, z, m, b, BW, s_src, s_zero, s_c14);
+  block_sum_u(v, red1);
+
+  // --- the raster scan with strict improvement is the first offset of
+  // least SAD, taken if below best0: each warp takes the least
+  // (SAD, offset) key (SAD < 2^21)
+  unsigned key = ~0u;
+  for (int k = lane; k < kOff; k += 32) {
+    if (k == kOff / 2) continue;  // the centre: its SAD is best0
+    unsigned sum = 0;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) sum += s_part[k * kW + i];
+    key = min(key, (sum << 8) | (unsigned)k);
+  }
+  key = __reduce_min_sync(0xffffffffu, key);
+  int best = best0, dx = dx0, dy = dy0;
+  if ((int)(key >> 8) < best0) {
+    const int k = (int)(key & 255u);
+    best = (int)(key >> 8);
+    dx = dx0 + k % kSide - kR;
+    dy = dy0 + k / kSide - kR;
+  }
+
+  // --- block_intra_test
+  const int yarea = b.bw_c * b.bh_c;
+  const int area = max(yarea, 1);
+  unsigned fails[1] = {intra_fails(s, m, (int)v[ZS] / area)};
+  block_sum_u(fails, red2);
+
+  // --- the half-pel grid: points k in row-major order over (yh, xh) in
+  // [-kRH, kRH]^2 without the centre, on the neighbourhood 3 pixels
+  // before the centre window
+  const int cx = b.bx + (b.bw_c >> 1) - kHP / 2;
+  const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
+  filter_nb<kNUW, kPSW>(rp, S, clampi(E + cy + dy - 3, 0, EH - kNB),
+                        clampi(E + cx + dx - 3, 0, S - kNB), s_nb, s_hu,
+                        s_h8, s_v8, s_d8);
+  for (int k = wid; k < kPts; k += kW) {
+    const int g = k < kPts / 2 ? k : k + 1;
+    int ws;
+    const uint8_t* win =
+        hp_win<kNUW, kPSW>(g % kHSide - kRH, g / kHSide - kRH, 1, s_nb, s_h8,
+                           s_v8, s_d8, ws);
+    unsigned acc = 0;
+    for (int p = lane; p < kHP * kHP; p += 32) {
+      const int i = p / kHP, j = p - i * kHP;
+      acc += absi((int)s_c14[p] - (int)win[i * ws + j]);
+    }
+    acc = __reduce_add_sync(0xffffffffu, acc);
+    if (lane == 0) s_a[k] = (int)acc;
+  }
+  __syncthreads();
+  if (wid != 0) return;  // warp 0 finishes the block
+
+  unsigned hkey = ~0u;  // (SAD < 2^16, point)
+  for (int k = lane; k < kPts; k += 32)
+    hkey = min(hkey, ((unsigned)s_a[k] << 8) | (unsigned)k);
+  hkey = __reduce_min_sync(0xffffffffu, hkey);
+  const int run_best = (int)(hkey >> 8);
+  const bool do_hp = best > BW * BH && b.inframe;
+  const bool hp_hit = do_hp && run_best < best * (kHP * kHP) / area;
+  int xh = 0, yh = 0;
+  const uint8_t* sel = s_nb + 3 * kNUW + 3;
+  int ss = kNUW;
+  if (hp_hit) {
+    const int k = (int)(hkey & 255u), g = k < kPts / 2 ? k : k + 1;
+    xh = g % kHSide - kRH;
+    yh = g / kHSide - kRH;
+    best = run_best * yarea / (kHP * kHP);
+    sel = hp_win<kNUW, kPSW>(xh, yh, 1, s_nb, s_h8, s_v8, s_d8, ss);
+  }
+  finish_block(a.out, o, b, v, fails[0], best, 2 * dx + xh, 2 * dy + yh,
+               hp_hit, sel, ss);
 }
 
 bool bad_block(int BW, int BH) {
@@ -801,8 +1094,35 @@ extern "C" int dsv1_hme_base(const uint8_t* src, const uint8_t* ref,
                              cudaStream_t stream) {
   if (bad_block(BW, BH) || NC < 1 || NC > kMaxNC)
     return (int)cudaErrorInvalidValue;
-  BaseArgs a{src, ref, cm, pstride, EH, S, E, w, h, nbh_l, nb, BW, BH, NC,
-             mvx, mvy, flags, qbits, ltex, svar};
+  BaseArgs a{src,  ref, cm, pstride, EH, S,  E,
+             w,    h,   nbh_l, nb, BW, BH, NC,
+             {mvx, mvy, flags, qbits, ltex, svar}};
   hme_base_kernel<<<dim3(nb, B), kNT, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Level 0 at effort 1..3 from the candidate search's dx, dy, best (B, nb)
+// on the flat level-0 images (pair stride pstride, n bytes each; frame
+// pixel (0, 0) at byte org; chunks of 2^lcw bytes for the wide window).
+extern "C" int dsv1_hme_wide(const uint8_t* src, const uint8_t* ref,
+                             int64_t pstride, int64_t n, int64_t org, int EH,
+                             int S, int E, int w, int h, int lcw, int nbh_l,
+                             int nb, int BW, int BH, int effort, int B,
+                             const int* dx, const int* dy, const int* best,
+                             int* mvx, int* mvy, int* flags, int* qbits,
+                             int* ltex, int* svar, cudaStream_t stream) {
+  if (bad_block(BW, BH) || effort < 1 || effort > 3 || lcw < 2 || lcw > 20 ||
+      (n >> lcw) < 1)
+    return (int)cudaErrorInvalidValue;
+  WideArgs a{src,   ref, pstride, n,  org, EH, S,  E,
+             w,     h,   lcw,     nbh_l, nb, BW, BH, dx,
+             dy,    best, {mvx, mvy, flags, qbits, ltex, svar}};
+  const dim3 grid(nb, B);
+  if (effort == 1)
+    hme_wide_kernel<2><<<grid, kNT, 0, stream>>>(a);
+  else if (effort == 2)
+    hme_wide_kernel<4><<<grid, kNT, 0, stream>>>(a);
+  else
+    hme_wide_kernel<6><<<grid, kNT, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }

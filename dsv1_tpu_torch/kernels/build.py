@@ -25,6 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 # launches per kernel: each wrapper adds one where it launches its kernel
+# (`refine_level` at level 0 also to `hme_refine_level0`)
 LAUNCHES = collections.Counter()
 
 _lib = None
@@ -91,9 +92,11 @@ def lib():
         L.dsv1_hme_coarse.argtypes = [P, I, I, I, I, I, I, P, P, P]
         L.dsv1_hme_base.argtypes = [P, P, P, I64, I, I, I, I, I, I, I, I,
                                     I, I, I, P, P, P, P, P, P, P]
+        L.dsv1_hme_wide.argtypes = [P, P, I64, I64, I64] + [I] * 12 \
+            + [P] * 10
         L.dsv1_haar_pyramid.argtypes = [P, I64, I, I, I, I, P, I64, P, P]
         for fn in (L.dsv1_mc_frame, L.dsv1_hme_refine, L.dsv1_hme_coarse,
-                   L.dsv1_hme_base, L.dsv1_haar_pyramid):
+                   L.dsv1_hme_base, L.dsv1_hme_wide, L.dsv1_haar_pyramid):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

@@ -81,8 +81,8 @@ def crf_quant(quality: int) -> int:
 class EncoderConfig:
     """The encoder's knobs, as the JAX package's EncoderConfig (defaults:
     dsv_enc_init, dsv_encoder.c:696-722). rc_mode picks CRF at `quality`
-    or the per-frame ABR law toward `bitrate`; the port encodes effort 0
-    only."""
+    or the per-frame ABR law toward `bitrate`; effort 1..3 widens the
+    level-0 motion search beyond the reference (ops/hme.py hme_batch)."""
     quality: int = quality_percent(85)
     gop: int = 24
     do_scd: bool = True
@@ -390,8 +390,6 @@ class Encoder:
         self.device = resolve(device)
         self.meta = meta
         self.cfg = config or EncoderConfig()
-        if self.cfg.effort:
-            raise NotImplementedError("effort > 0 is not ported yet")
         # dynamic state (dsv_encoder.h:83-110)
         self.rc_quant = 0
         self.bpf_total = 0
@@ -451,9 +449,9 @@ class Encoder:
         mv = hme_batch([a[None] for a in imgs],
                        [a[None] for a in self._ref_pyr], layouts,
                        self.blk_w, self.blk_h, self.nbh, self.nbv,
-                       self.meta.subsamp, levels, calls)
+                       self.meta.subsamp, levels, calls, self.cfg.effort)
         nblk = self.nbh * self.nbv
-        STATS["hme_calls"] += 1
+        STATS["hme_calls_wide" if self.cfg.effort else "hme_calls"] += 1
         host = torch.cat([al.reshape(1).to(torch.int32),
                           mv["intra_pct"].reshape(1).to(torch.int32)]
                          + [mv[k].reshape(-1).to(torch.int32)

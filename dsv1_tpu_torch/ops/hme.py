@@ -7,8 +7,9 @@ a 9-point full-pel refine and, at level 0, an 8-point half-pel refine
 plus an HVS-driven intra/inter cascade. ops/hme_kernels.py does the
 search: `refine_coarse` the coarse levels with their candidates (one C
 call on the GPU), `refine_base_cm` level 0 on those candidates as they
-come; the chroma-variance term and the neighbour-coupled high-detail
-pass are tensor code here.
+come (effort 0), or `refine_level` and `refine_wide` (effort 1..3, the
+beyond-reference wider level-0 search); the chroma-variance term and
+the neighbour-coupled high-detail pass are tensor code here.
 """
 
 import torch
@@ -122,11 +123,16 @@ def refine_base_from_kernel(src_imgs, ref_imgs, layout: FrameLayout,
 
 def hme_batch(src_flats, ref_flats, layouts, blk_w: int, blk_h: int,
               nbh: int, nbv: int, subsamp: int, levels: int,
-              calls: list | None = None):
-    """Batched dsv_hme (effort 0) over a leading frame-pair axis.
+              calls: list | None = None, effort: int = 0):
+    """Batched dsv_hme over a leading frame-pair axis.
 
     src_flats/ref_flats: per pyramid level, (B, flat) u8 images (level 0
     the full frame). Returns the level-0 dict with a leading B axis.
+    At effort 0 level 0 is `refine_base_cm` on the coarse search's
+    candidates; at effort 1..3 (the JAX package's hme_batch,
+    dsv1_tpu/ops/hme.py:769-792) the candidate search and 9-point
+    refine of `refine_level` at level 0, then `refine_wide`'s +-2 effort
+    full-pel window, half-pel grid and luma cascade.
     When `calls` is a list, each kernel call's (name, args) is appended
     to it, so a caller can rerun a kernel on exactly these arguments."""
     src2d = [_lvl2d(src_flats[lv], layouts[lv]) for lv in range(levels + 1)]
@@ -136,12 +142,26 @@ def hme_batch(src_flats, ref_flats, layouts, blk_w: int, blk_h: int,
         calls.append(("hme_coarse", cargs))
     cm = hk.refine_coarse(*cargs)
     p = layouts[0].planes[0]
-    args = (src2d[0], ref2d[0], cm, p.ext, p.w, p.h, nbh, nbh * nbv, blk_w,
-            blk_h)
-    if calls is not None:
-        calls.append(("hme_base", args))
-    kouts = hk.refine_base_cm(*args)
+    nb = nbh * nbv
+    if effort == 0:
+        args = (src2d[0], ref2d[0], cm, p.ext, p.w, p.h, nbh, nb, blk_w,
+                blk_h)
+        if calls is not None:
+            calls.append(("hme_base", args))
+        kouts = hk.refine_base_cm(*args)
+    else:
+        nc = cm.shape[-1] // 2
+        args = (src2d[0], ref2d[0], cm[..., :nc], cm[..., nc:], p.ext, p.w,
+                p.h, nbh, nb, blk_w, blk_h, 0)
+        if calls is not None:
+            calls.append(("hme_level0", args))
+        pre = hk.refine_level(*args)
+        wargs = (src_flats[0], ref_flats[0], layouts[0], nbh, nb, blk_w,
+                 blk_h, pre, effort)
+        if calls is not None:
+            calls.append(("hme_wide", wargs))
+        kouts = hk.refine_wide(*wargs)
     out = refine_base_from_kernel(src_flats[0], ref_flats[0], layouts[0],
                                   blk_w, blk_h, nbh, nbv, subsamp, kouts)
-    out["intra_pct"] = out["nintra"] * 100 // (nbh * nbv)
+    out["intra_pct"] = out["nintra"] * 100 // nb
     return out

@@ -20,10 +20,17 @@ Replaces the Pallas kernels of dsv1_tpu/ops/pallas_hme.py:
   texture/variance with u32 wrap, the zero-MV intra test, the luma
   GO_INTRA cascade and the quadrant good/evil metric. `refine_base` is
   the same on the candidates' x and y halves.
+- `refine_wide`: level 0 at effort 1..3 after `refine_level` at level
+  0, replacing XLA code of the JAX package (its refine_base with `pre`,
+  dsv1_tpu/ops/hme.py:324-420), not a Pallas kernel: an exhaustive
+  +-2 effort full-pel window, a +-(1 + effort) half-pel grid in place
+  of the 8 neighbours, then `refine_base`'s luma cascade.
 
 Windows are read from the unpadded extended (EH, S) plane with every
 origin clamped into it, as the Pallas bodies do (the C reference reads
-out of bounds there). The kernels (csrc/hme.cu) read pixels four to a
+out of bounds there); only `refine_wide`'s full-pel window, which the
+JAX package reads from the flat image, is read from it the same way
+(`flat_windows_clipped`). The kernels (csrc/hme.cu) read pixels four to a
 32-bit word, so their wrappers require word-aligned planes, strides,
 borders and block widths, and raise otherwise. The wrappers take the
 plain version for CPU tensors and launch the kernels for CUDA tensors;
@@ -253,8 +260,32 @@ def refine_base_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
     cm = _cands(cmx, cmy)
     srcw = g.srcw()
     dx, dy, best = _search(g, cm, cmx.shape[-1], 0, srcw)
+    return _luma_tail(g, srcw, dx, dy, best, XH, YH, 0)
+
+
+def _hp_grid(effort: int):
+    """The half-pel points level 0 tries around the full-pel best at
+    effort 1..3, in place of the 8 unit neighbours XH/YH: the grid of
+    +-(1 + effort) half-pels, row-major over (y, x), without (0, 0)
+    (the JAX package's refine_base, dsv1_tpu/ops/hme.py:389-399)."""
+    rh = 1 + effort
+    pts = [(x, y) for y in range(-rh, rh + 1) for x in range(-rh, rh + 1)
+           if (x, y) != (0, 0)]
+    return tuple(x for x, _ in pts), tuple(y for _, y in pts)
+
+
+def _luma_tail(g: _Grid, srcw, dx, dy, best, xh_pts, yh_pts, pad: int):
+    """Level 0 after the full-pel search (dx, dy, best): the half-pel
+    refine over the points (xh_pts, yh_pts) on 14x14 windows, the
+    chosen and source centre-window statistics, the block metrics, the
+    zero-MV intra test, the luma GO_INTRA cascade and the quadrant
+    metric. The half-pel neighbourhood starts 2 + pad pixels before the
+    full-pel centre window (pad 1 covers the +-2-pixel grid of effort 3).
+    Returns (mvx, mvy, flags, qbits, luma_tex, src_var), (B, nb) int32."""
+    E, BW, BH = g.E, g.BW, g.BH
     S, EH = g.S, g.EH
     i64 = torch.int64
+    best = best.to(i64)
 
     # --- half-pel refine (hme.c:543-597)
     yarea = g.bw_c * g.bh_c
@@ -265,8 +296,9 @@ def refine_base_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
                    (E + cx).clamp(0, S - HP).expand(g.B, -1), HP, HP)
     A = cx + dx
     Bc = cy + dy
-    nb_ = g.win(g.ref, (E + Bc - 2).clamp(0, EH - NB_W),
-                (E + A - 2).clamp(0, S - NB_W), NB_W, NB_W)
+    o = 2 + pad
+    nb_ = g.win(g.ref, (E + Bc - o).clamp(0, EH - NB_W),
+                (E + A - o).clamp(0, S - NB_W), NB_W, NB_W)
     hu = 9 * (nb_[..., :, 1:-2] + nb_[..., :, 2:-1]) \
         - (nb_[..., :, :-3] + nb_[..., :, 3:])
     h8 = ((hu + 8) >> 4).clamp(0, 255)
@@ -275,30 +307,34 @@ def refine_base_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
     d8 = ((9 * (hu[..., 1:-2, :] + hu[..., 2:-1, :])
            - (hu[..., :-3, :] + hu[..., 3:, :]) + 128) >> 8).clamp(0, 255)
 
-    def hp_window(k):
-        xh, yh = XH[k], YH[k]
-        r0, c0 = 2 + (yh >> 1), 2 + (xh >> 1)
+    def hp_window(xh, yh):
+        """The 14x14 window of the half-pel point (xh, yh): a filtered
+        plane picked by its phase, at its pixel offset (xh >> 1, yh >> 1)
+        from the full-pel centre window."""
+        r, c = o + (yh >> 1), o + (xh >> 1)
         if xh & 1 and yh & 1:
-            return d8[..., r0 - 1:r0 - 1 + HP, c0 - 1:c0 - 1 + HP]
+            return d8[..., r - 1:r - 1 + HP, c - 1:c - 1 + HP]
         if xh & 1:
-            return h8[..., r0:r0 + HP, c0 - 1:c0 - 1 + HP]
-        return v8[..., r0 - 1:r0 - 1 + HP, c0:c0 + HP]
+            return h8[..., r:r + HP, c - 1:c - 1 + HP]
+        if yh & 1:
+            return v8[..., r - 1:r - 1 + HP, c:c + HP]
+        return nb_[..., r:r + HP, c:c + HP]
 
     do_hp = (best > BW * BH) & g.inframe
     run_best = torch.div(best * (HP * HP), yarea.clamp(min=1),
                          rounding_mode="trunc")
     run_m = torch.full_like(best, -1)
     wins = []
-    for k in range(8):
-        wk = hp_window(k)
+    for k, (xh, yh) in enumerate(zip(xh_pts, yh_pts)):
+        wk = hp_window(xh, yh)
         wins.append(wk)
         s = (srcw14 - wk).abs().sum(dim=(-2, -1))
         take = s < run_best
         run_m = torch.where(take, k, run_m)
         run_best = torch.where(take, s, run_best)
     hp_hit = do_hp & (run_m >= 0)
-    xh_t = torch.tensor(XH, device=best.device)
-    yh_t = torch.tensor(YH, device=best.device)
+    xh_t = torch.tensor(xh_pts, device=best.device)
+    yh_t = torch.tensor(yh_pts, device=best.device)
     mk = run_m.clamp(min=0)
     mvx = torch.where(hp_hit, (dx << 1) + xh_t[mk], dx << 1)
     mvy = torch.where(hp_hit, (dy << 1) + yh_t[mk], dy << 1)
@@ -306,8 +342,8 @@ def refine_base_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
                                          rounding_mode="trunc"), best)
 
     # --- chosen and source centre-window statistics
-    selw = nb_[..., 2:2 + HP, 2:2 + HP]
-    for k in range(8):
+    selw = nb_[..., o:o + HP, o:o + HP]
+    for k in range(len(wins)):
         sel = (hp_hit & (run_m == k))[..., None, None]
         selw = torch.where(sel, wins[k], selw)
     rtex, ravg, rvar = _texture14(selw)
@@ -387,6 +423,84 @@ def refine_base_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
             luma_tex.to(i32), svar.to(i32))
 
 
+def chunk_width(S: int) -> int:
+    """The JAX package's span_gather chunk (dsv1_tpu/ops/opt.py
+    _chunk_width): the largest power-of-two divisor of the row stride,
+    from 16 up to 128."""
+    cw = 16
+    while cw < 128 and S % (cw * 2) == 0:
+        cw *= 2
+    return cw
+
+
+def flat_windows_clipped(flat, base, H: int, W: int, S: int):
+    """(B, nb, H, W) int32 windows of the (B, n) u8 flat images, window
+    (b, k) starting at flat offset base[b, k] (any sign) with rows S
+    apart, read as the JAX package's span_gather reads them: byte f is
+    byte f mod CW of the CW-byte chunk floor(f / CW) clipped to the
+    image's chunks, so a row past the right edge runs on into the next
+    row and offsets before the image or past its end land in its first
+    or last chunk (CW = chunk_width(S))."""
+    B, n = flat.shape
+    cw = chunk_width(S)
+    dev = flat.device
+    off = (torch.arange(H, device=dev)[:, None] * S
+           + torch.arange(W, device=dev)[None, :])
+    f = base.to(torch.int64)[..., None, None] + off
+    chunk = torch.div(f, cw, rounding_mode="floor").clamp(0, n // cw - 1)
+    idx = (chunk * cw + torch.remainder(f, cw)
+           + (torch.arange(B, device=dev) * n)[:, None, None, None])
+    return flat.reshape(-1)[idx].to(torch.int32)
+
+
+def _wide_geometry(src_flat, ref_flat, layout):
+    """(the (B, EH, S) luma plane views of the flat level-0 images, the
+    flat offset of frame pixel (0, 0), the plane's geometry)."""
+    p = layout.planes[0]
+    org = layout.margin + p.offset
+    EH = p.h + 2 * p.ext
+    start = org - p.ext * p.stride - p.ext
+    B = src_flat.shape[0]
+    views = [f[:, start:start + EH * p.stride].reshape(B, EH, p.stride)
+             for f in (src_flat, ref_flat)]
+    return views, org, p
+
+
+def refine_wide_plain(src_flat, ref_flat, layout, nbh_l, nb, BW, BH, pre,
+                      effort):
+    """Plain form of level 0 at effort > 0 (the JAX package's refine_base
+    with `pre`, dsv1_tpu/ops/hme.py:324-420, and the luma part of its
+    _base_tail): from the candidate search's (dx, dy, best) (`pre`,
+    each (B, nb) int32), an exhaustive +-R full-pel window, R =
+    2 effort, scanned raster over (oy, ox) without the centre, a move
+    taken only on a strict improvement; then the half-pel grid of
+    +-(1 + effort) and the luma cascade of `refine_base_plain`.
+    src_flat/ref_flat: (B, n) u8 flat level-0 images; the wide window is
+    read from them as the JAX package reads it (`flat_windows_clipped`),
+    the windows inside the extended plane from its (EH, S) view, as
+    `refine_base_plain` reads them. Returns (mvx, mvy, flags, qbits,
+    luma_tex, src_var), each (B, nb) int32."""
+    (src2d, ref2d), org, p = _wide_geometry(src_flat, ref_flat, layout)
+    g = _Grid(src2d, ref2d, p.ext, p.w, p.h, nbh_l, nb, BW, BH)
+    srcw = g.srcw()
+    dx0, dy0, best = (t.to(torch.int64) for t in pre)
+    R = 2 * effort
+    padw = flat_windows_clipped(
+        ref_flat, org + (g.by + dy0 - R) * p.stride + g.bx + dx0 - R,
+        BH + 2 * R, BW + 2 * R, p.stride)
+    dx, dy = dx0, dy0
+    for oy in range(2 * R + 1):
+        for ox in range(2 * R + 1):
+            if oy == R and ox == R:
+                continue   # the centre's SAD is `best`
+            s = g.sad(srcw, padw[..., oy:oy + BH, ox:ox + BW])
+            take = s < best
+            best = torch.where(take, s, best)
+            dx = torch.where(take, dx0 + (ox - R), dx)
+            dy = torch.where(take, dy0 + (oy - R), dy)
+    return _luma_tail(g, srcw, dx, dy, best, *_hp_grid(effort), 1)
+
+
 def _check_planes(src2d, ref2d, E, BW):
     """The layout the kernels read: (B, EH, S) uint8 planes with
     contiguous rows, pixels loaded four to an aligned word (so the
@@ -430,6 +544,8 @@ def refine_level(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH, level):
         *[o.data_ptr() for o in outs], stream_ptr(src2d))
     check(err, "dsv1_hme_refine")
     LAUNCHES["hme_refine"] += 1
+    if level == 0:
+        LAUNCHES["hme_refine_level0"] += 1
     return tuple(outs)
 
 
@@ -499,4 +615,43 @@ def refine_base_cm(src2d, ref2d, cm, E, w, h, nbh_l, nb, BW, BH):
         *[o.data_ptr() for o in outs], stream_ptr(src2d))
     check(err, "dsv1_hme_base")
     LAUNCHES["hme_base"] += 1
+    return tuple(outs)
+
+
+def refine_wide(src_flat, ref_flat, layout, nbh_l, nb, BW, BH, pre, effort):
+    """Level 0 at effort 1..3 from the candidate search's `pre` = (dx,
+    dy, best), each (B, nb) int32: (mvx, mvy, flags, qbits, luma_tex,
+    src_var), each (B, nb) int32, as `refine_base_cm` gives them.
+    src_flat/ref_flat: (B, n) u8 flat level-0 images of `layout` (the
+    wide window may leave the extended plane; see refine_wide_plain)."""
+    if effort not in (1, 2, 3):
+        raise ValueError(f"effort must be 1, 2 or 3, not {effort}")
+    if not src_flat.is_cuda:
+        return refine_wide_plain(src_flat, ref_flat, layout, nbh_l, nb, BW,
+                                 BH, pre, effort)
+    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
+    for t in (src_flat, ref_flat):
+        if t.dtype != torch.uint8 or t.dim() != 2 or t.stride(1) != 1:
+            raise ValueError("images must be (B, n) uint8 with contiguous "
+                             "rows")
+    if src_flat.shape != ref_flat.shape \
+            or src_flat.stride(0) != ref_flat.stride(0):
+        raise ValueError("src and ref images must have the same layout")
+    (src2d, ref2d), org, p = _wide_geometry(src_flat, ref_flat, layout)
+    _check_planes(src2d, ref2d, p.ext, BW)
+    B, n = src_flat.shape
+    for t in pre:
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.shape != (B, nb):
+            raise ValueError("pre must be contiguous (B, nb) int32")
+    outs = [torch.empty((B, nb), dtype=torch.int32, device=src_flat.device)
+            for _ in range(6)]
+    err = lib().dsv1_hme_wide(
+        src_flat.data_ptr(), ref_flat.data_ptr(), src_flat.stride(0), n,
+        org, p.h + 2 * p.ext, p.stride, p.ext, p.w, p.h,
+        chunk_width(p.stride).bit_length() - 1, nbh_l, nb, BW, BH, effort,
+        B, *[t.data_ptr() for t in pre], *[o.data_ptr() for o in outs],
+        stream_ptr(src_flat))
+    check(err, "dsv1_hme_wide")
+    LAUNCHES["hme_wide"] += 1
     return tuple(outs)

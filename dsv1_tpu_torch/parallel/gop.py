@@ -156,8 +156,9 @@ class GopEncoder:
                  do_scd: bool = True, scd_delta: int = 4,
                  intra_thresh: int = 50, stable_refresh: int = 0,
                  pyramid_levels: int = 0, device="cuda",
-                 cap_quality: int | None = None):
+                 cap_quality: int | None = None, effort: int = 0):
         self.device = resolve(device)
+        self.effort = effort
         self.subsamp, self.w, self.h, self.G = subsamp, w, h, G
         self.blk_w, self.blk_h, self.nbh, self.nbv = block_geometry(w, h)
         self.levels = pyramid_levels or auto_pyramid_levels(
@@ -188,10 +189,11 @@ class GopEncoder:
         imgs, al = self.prep((y, u, v))
         if packed.shape[0] == 1:
             return imgs, al, None, None
-        STATS["hme_calls"] += 1
+        STATS["hme_calls_wide" if self.effort else "hme_calls"] += 1
         mv = hme_batch([a[1:] for a in imgs], [a[:-1] for a in imgs],
                        self.layouts, self.blk_w, self.blk_h, self.nbh,
-                       self.nbv, self.subsamp, self.levels, calls)
+                       self.nbv, self.subsamp, self.levels, calls,
+                       self.effort)
         has_ref = mv["intra_pct"] <= self.intra_thresh
         if self.do_scd:
             has_ref &= (al[1:] - al[:-1]).abs() <= self.scd_delta
@@ -289,11 +291,11 @@ def build_gop_encoder(subsamp: int, w: int, h: int, G: int, quality: int,
                       do_scd: bool = True, scd_delta: int = 4,
                       intra_thresh: int = 50, stable_refresh: int = 0,
                       pyramid_levels: int = 0, device: str = "cuda",
-                      cap_quality: int | None = None):
+                      cap_quality: int | None = None, effort: int = 0):
     """The GOP encoder for one geometry (cached)."""
     return GopEncoder(subsamp, w, h, G, quality, do_scd, scd_delta,
                       intra_thresh, stable_refresh, pyramid_levels, device,
-                      cap_quality)
+                      cap_quality, effort)
 
 
 def _packed_gops(frames, G: int):
@@ -573,9 +575,10 @@ def encode_stream_gops(frames, meta: Metadata,
     intra only), or ABR: with the reference's per-frame law (abr_mode
     "exact") or GOP-granular (abr_mode "gop", `_encode_gop_abr`).
     Byte-identical to the JAX package's encode_stream_gops for the same
-    frames and config. Raises the JAX package's ValueError for ABR at
-    gop 0 and for gop > 4096 (the sequential `Encoder` runs those),
-    NotImplementedError for effort > 0."""
+    frames and config, effort 1..3 (the wider level-0 motion search,
+    ops/hme.py hme_batch) included. Raises the JAX package's ValueError
+    for ABR at gop 0 and for gop > 4096 (the sequential `Encoder` runs
+    those)."""
     cfg = cfg or EncoderConfig()
     dev = resolve(device)
     abr = cfg.rc_mode != RATE_CONTROL_CRF
@@ -588,8 +591,6 @@ def encode_stream_gops(frames, meta: Metadata,
     if abr_mode not in ("exact", "gop"):
         raise ValueError(f"abr_mode must be 'exact' or 'gop', not "
                          f"{abr_mode!r}")
-    if cfg.effort:
-        raise NotImplementedError("effort > 0 is not ported yet")
     if cfg.gop == GOP_INTRA:
         return _encode_intra(frames, meta, cfg, dev)
     w, h, subsamp = meta.width, meta.height, meta.subsamp
@@ -597,7 +598,7 @@ def encode_stream_gops(frames, meta: Metadata,
     enc = build_gop_encoder(subsamp, w, h, G, cfg.quality, cfg.do_scd,
                             cfg.scene_change_delta, cfg.intra_pct_thresh,
                             cfg.stable_refresh, cfg.pyramid_levels, str(dev),
-                            cfg.max_quality if abr else None)
+                            cfg.max_quality if abr else None, cfg.effort)
     run = _GopRunner(enc, meta, dev)
     # GOPs run in order: the accumulators, counter and rate state carry
     # across them

@@ -45,6 +45,13 @@ CLIPS = {
                        ("-w1920", "-h1080", "-gop0", "-rc_mode1"), {}),
     "1080p_gopabr_cli": (1920, 1080, "make_rich_clip", 37,
                          ("-w1920", "-h1080", "-gopabr1"), {}),
+    "1080p_effort_cli": (1920, 1080, "make_rich_clip", 13,
+                         ("-w1920", "-h1080", "-effort3"), {}),
+    "4k_effort_cli": (3840, 2160, "make_rich_clip", 13,
+                      ("-w3840", "-h2160", "-effort3"), {}),
+    "1080p_effort_seq_cli": (1920, 1080, "make_rich_clip", 13,
+                             ("-w1920", "-h1080", "-gopar0", "-effort2"),
+                             {}),
 }
 
 

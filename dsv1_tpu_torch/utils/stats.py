@@ -6,8 +6,9 @@ paths run; callers set it to 0 with `STATS.clear()`. Keys:
 - `core_i`, `core_p`: frames through the encode core as intra and as P
   (a forced-intra P slot counts as intra); a frame encoded twice counts
   twice;
-- `hme_calls`: `hme_batch` calls (one per GOP of more than one frame on
-  the GOP path, one per P frame on the sequential `Encoder`);
+- `hme_calls`, `hme_calls_wide`: `hme_batch` calls at effort 0 and at
+  effort 1..3 (one per GOP of more than one frame on the GOP path, one
+  per P frame on the sequential `Encoder`);
 - `decode_p`: P pictures predicted by the decoders;
 - `overflow_redos`: GOPs (gop 0: chunks; sequential: frames) whose
   compacted planes overflowed their caps and were packed from the dense

@@ -7,8 +7,8 @@ ABR, auto bitrate, gop 12), with CRF (-rc_mode1), 4:4:4 input decoded
 with -out420p1, GOP-granular ABR (-gopabr1) on 4:2:2 input, and on the
 sequential paths: -gopar0, intra-only -gop0 (CRF through the
 GOP-parallel encoder, ABR through the sequential Encoder), -gop5000 and
-the -drawinfo7 overlay decode. An option the port does not run yet
-(-effort1) exits with code 2."""
+the -drawinfo7 overlay decode. -effort runs on every path
+(tests/test_torch_effort.py)."""
 
 import pytest
 import torch
@@ -76,13 +76,3 @@ def test_cli_gopabr_matches_jax(tmp_path):
     GOP of 2 frames, which both packages pad to 12 for the overflow
     verdict."""
     test_cli_matches_jax(tmp_path, 1, ["-gopabr1"], ["-out420p1"])
-
-
-@pytest.mark.parametrize("argv", [["e", "-effort1"]])
-def test_cli_not_ported_exits(tmp_path, capsys, argv):
-    (tmp_path / "in.yuv").write_bytes(b"")
-    code = tcli.main([argv[0], f"-inp_{tmp_path}/in.yuv",
-                      f"-out_{tmp_path}/out", *argv[1:]], device="cpu")
-    assert code == tcli.NOT_PORTED
-    assert "not ported yet" in capsys.readouterr().err
-    assert not (tmp_path / "out").exists()

@@ -67,9 +67,6 @@ def test_encode_rejects_what_is_not_ported():
                 dt.EncoderConfig(gop=4097)):
         with pytest.raises(ValueError, match="use models.encoder.Encoder"):
             dt.encode_stream_gops(frames, meta, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="effort"):
-        dt.encode_stream_gops(frames, meta, EncoderConfig(gop=2, effort=1),
-                              device="cpu")
     # GOP-granular ABR runs (tests/test_torch_gopabr.py); an unknown
     # abr_mode is refused
     with pytest.raises(ValueError, match="abr_mode"):

@@ -6,8 +6,9 @@ stream and decode of the smoke clips, written by tools/torch_golden.py:
 frames), `cif_cli` and `4k_cli` through the CLI at its defaults
 (per-frame ABR, auto bitrate), `1080p_seq_cli` (-gopar0, and its
 -drawinfo7 decode) and `1080p_gop0_cli` (-gop0 -rc_mode1) through the
-CLI's sequential and intra-only paths, and `1080p_gopabr_cli` (-gopabr1,
-GOP-granular ABR). Here the CIF entries are
+CLI's sequential and intra-only paths, `1080p_gopabr_cli` (-gopabr1,
+GOP-granular ABR), and `1080p_effort_cli`, `4k_effort_cli` (-effort3)
+and `1080p_effort_seq_cli` (-gopar0 -effort2). Here the CIF entries are
 regenerated from JAX on the CPU and checked against the file, and the
 port's CPU encode and decode (through `encode_stream_gops` or the CLI)
 are checked against it, as is the port's intra-only 1080p CLI run; the
@@ -119,3 +120,16 @@ def test_1080p_gopabr_cli_golden_matches_jax():
 @pytest.mark.slow
 def test_port_1080p_gopabr_cli_matches_golden(tmp_path):
     _check_port_cli("1080p_gopabr_cli", tmp_path)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["1080p_effort_cli", "4k_effort_cli",
+                                  "1080p_effort_seq_cli"])
+def test_effort_cli_golden_matches_jax(name):
+    _check_jax(name)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["1080p_effort_cli", "1080p_effort_seq_cli"])
+def test_port_effort_cli_matches_golden(name, tmp_path):
+    _check_port_cli(name, tmp_path)

@@ -18,7 +18,11 @@ of the first GOP, as chip_smoke.py picks it):
   level) of the 1080p and the 3840x2160 clip, as `GopEncoder.motion`
   calls it, and the HME kernels' wrappers on the arguments it passes
   them (the coarse levels, one `refine_coarse` call or, on a tree from
-  before it, one `refine_level` call per level; level 0).
+  before it, one `refine_level` call per level; level 0);
+- where the port has the wider level-0 search (effort 1..3),
+  `hme.hme_batch` of those GOPs at effort 3 and its level-0 wrappers:
+  kernel #2 at level 0 (`refine_level`) and `refine_wide` at efforts 1,
+  2 and 3.
 
 For each: the CUDA-event mean per call over a loop of calls (the
 wrappers' host work included), the device time per call summed from
@@ -172,15 +176,16 @@ def gop_images(dev, clip):
     return enc, imgs
 
 
-def hme_calls(enc, imgs):
-    """`hme.hme_batch` on a GOP's images: (its function, the HME
-    kernels' calls it made)."""
+def hme_calls(enc, imgs, effort=0):
+    """`hme.hme_batch` on a GOP's images (at `effort`): (its function,
+    the HME kernels' calls it made)."""
     from dsv1_tpu_torch.ops import hme
+    kw = {"effort": effort} if effort else {}
 
     def fn(calls=None):
         return hme.hme_batch([a[1:] for a in imgs], [a[:-1] for a in imgs],
                              enc.layouts, enc.blk_w, enc.blk_h, enc.nbh,
-                             enc.nbv, enc.subsamp, enc.levels, calls)
+                             enc.nbv, enc.subsamp, enc.levels, calls, **kw)
     calls = []
     fn(calls)
     return fn, calls
@@ -218,6 +223,30 @@ def hme_cases(dev, clip):
                   "hme_"),
             timed(f"{base.__name__} {clip} GOP ({enc.blk_w}x{enc.blk_h})",
                   lambda: base(*bargs), 20, "hme_")]
+
+
+def hme_effort_cases(dev, clip, effort=3):
+    """The wider level-0 search of a clip's first GOP where the port has
+    it (`hme_kernels.refine_wide`): `hme.hme_batch` at `effort`, and the
+    wrappers of its level 0 on the arguments it passes them: kernel #2
+    at level 0 (`refine_level`) and `refine_wide` at efforts 1..3."""
+    from dsv1_tpu_torch.ops import hme_kernels as hk
+    if not hasattr(hk, "refine_wide"):
+        return []
+    enc, imgs = gop_images(dev, clip)
+    fn, calls = hme_calls(enc, imgs, effort)
+    (largs,) = [a for name, a in calls if name == "hme_level0"]
+    (wargs,) = [a for name, a in calls if name == "hme_wide"]
+    rows = [timed(f"hme_batch effort {effort} {clip} GOP "
+                  f"({len(imgs[0]) - 1} pairs)", fn, 20, "hme_"),
+            timed(f"refine_level level 0 {clip} GOP ({enc.blk_w}x"
+                  f"{enc.blk_h})", lambda: hk.refine_level(*largs), 20,
+                  "hme_")]
+    for e in (1, 2, 3):
+        a = (*wargs[:-1], e)
+        rows.append(timed(f"refine_wide effort {e} {clip} GOP", lambda a=a:
+                          hk.refine_wide(*a), 20, "hme_"))
+    return rows
 
 
 def e2e_case(dev, reps: int):
@@ -276,6 +305,8 @@ def main():
         rows += [mc_case(dev, "1080p"), mc_case(dev, "4k_cli")]
     if "hme" in only:
         rows += hme_cases(dev, "1080p") + hme_cases(dev, "4k_cli")
+        rows += (hme_effort_cases(dev, "1080p")
+                 + hme_effort_cases(dev, "4k_cli"))
     if args.e2e:
         rows.append(e2e_case(dev, args.e2e))
     res = {"root": str(Path(dsv1_tpu_torch.__file__).parent.parent),
