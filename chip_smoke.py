@@ -69,7 +69,26 @@ non-zero:
    `1080p_effort_seq_cli` (13 frames, -gopar0 -effort2: the sequential
    Encoder), each decoded by the CLI, the last also by the `Decoder`
    API.
-Phases 5 to 8 are main paths: each path's streams and decodes must
+9. batches — several GOPs through each launch: first `mc` on the P
+   frames of one frame index of a chunk (C = 4 GOPs at CIF, C = 2 at
+   1080p; HME and fuzzed fields) and `haar_fwd` on C planes (P and I)
+   in one call, each against its plain version and against C single
+   calls, timed beside the C = 1 call; then `cif_batch` (52 frames,
+   gop 12, qp 85 CRF through `encode_stream_gops` at its default: 4
+   GOPs a chunk, then a tail GOP of 4 frames padded to a chunk; every P
+   call carries 4 frames) with its frames/s, kernels per encoded frame
+   and device busy share (tools/torch_profile.py) at the default and at
+   gops_per_device=1, whose stream must be the same bytes;
+   `cif_batch_cut` (40 frames, stable_refresh 4, a cut in the second
+   GOP: GOPs start from carried stability states, and a frame index
+   splits into P and intra frames); `1080p_gopabr_batch` (37 frames,
+   -gopabr1's settings at 2 GOPs a chunk: its own golden, not
+   `1080p_gopabr_cli`'s); and `cif_shards`: `cif_batch`'s clip through
+   `encode_stream_multihost` with 3 shards, then through
+   `run_distributed_shard` in 2 processes on this card (gloo on
+   127.0.0.1, tools/torch_shard_worker.py), each muxed stream equal to
+   `cif_batch`'s golden.
+Phases 5 to 9 are main paths: each path's streams and decodes must
 hash to dsv1_tpu_torch/data/golden.json (written from the JAX package
 by tools/torch_golden.py), and the kernels' launch counts are set to 0
 before each path and read after it; every kernel of a path must have
@@ -79,15 +98,18 @@ the effort encodes, with `hme_refine_level0`: the level-0 launches,
 also counted in `hme_refine`; `haar_fwd` and neither `mc` nor HME on
 the gop-0 encode, `mc` on the decoders), and each count must equal the count
 predicted from what the path did (`dsv1_tpu_torch/utils/stats.py`
-STATS: frames through the encode core as intra and as P, HME calls at
-effort 0 and above, P pictures decoded) and from
+STATS: calls of the encode core on intra and on P frames, each a frame
+or the frames of one type at one frame index of a chunk, HME calls at
+effort 0 and above, one a chunk, P pictures decoded) and from
 each wrapper's launches per call at the clip's geometry
-(`predict_launches`). Each encode prints its `overflow_redos`: the GOPs
-(gop 0: chunks; sequential: frames) whose compaction overflowed and
-were packed from their dense planes.
+(`predict_launches`). Each encode prints its `overflow_redos`: the
+chunks of GOPs (gop 0: chunks of frames; sequential: frames) whose
+compaction overflowed and were packed from their dense planes.
 
-The line before the card's line lists every kernel with its launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+The line before the card's line lists every kernel with its launches
+summed over the main paths of phases 5 to 9 (4k_cli's level 0 on the
+`hme_base_banded` row), its error and times; the last line is
+{"ok": true, "device": {...}}.
 """
 
 import hashlib
@@ -119,6 +141,11 @@ SEQ_CLIP, GOP0_CLIP = "1080p_seq_cli", "1080p_gop0_cli"
 # the CLI at -effort3 (per-frame ABR, 1080p and 4K), -gopar0 -effort2
 EFFORT_CLIPS = ("1080p_effort_cli", "4k_effort_cli", "1080p_effort_seq_cli")
 EFFORT_SEQ_CLIP = "1080p_effort_seq_cli"
+# several GOPs a launch (encode_stream_gops at its default chunk), a cut
+# with carried stability states, GOP-granular ABR at 2 GOPs a chunk
+BATCH_CLIP, CUT_CLIP = "cif_batch", "cif_batch_cut"
+GOPABR_BATCH_CLIP = "1080p_gopabr_batch"
+SHARD_TIMEOUT_S = 300      # each shard process of phase 9
 ROW_KEYS = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -708,10 +735,12 @@ def phase_edges(dev):
 def predict_launches(stats, w: int, h: int) -> dict:
     """Each kernel's launches on a path of one geometry, from what the
     path did (utils/stats.py STATS) and each wrapper's launches per call:
-    `mc` one per P frame predicted (encode core and decoders),
-    `haar_fwd` per frame through the core one C call for each plane with
-    a Haar level (levels 1.. of a P plane, 2.. of an intra plane), which
-    launches twice past HAAR_TILE_LEVELS levels; per `hme_batch` call at
+    `mc` one per call of the encode core on P frames (a frame, or the P
+    frames of one frame index of a chunk's GOPs) and one per P frame
+    predicted by the decoders, `haar_fwd` per call of the core one C
+    call for each plane with a Haar level (levels 1.. of a P plane, 2..
+    of an intra plane; the call covers the batch), which launches twice
+    past HAAR_TILE_LEVELS levels; per `hme_batch` call (one a chunk) at
     effort 0 `hme_base` once and `hme_refine` levels + 1 times (a kernel
     per coarse level, then the candidates) at the auto pyramid depth,
     and per call at effort 1..3 `hme_refine` levels + 2 times (level 0
@@ -733,9 +762,9 @@ def predict_launches(stats, w: int, h: int) -> dict:
                 n += 1 + (lv - first + 1 > sbt.HAAR_TILE_LEVELS)
         return n
 
-    return {"mc": stats.get("core_p", 0) + stats.get("decode_p", 0),
-            "haar_fwd": stats.get("core_i", 0) * haar(2)
-            + stats.get("core_p", 0) * haar(1),
+    return {"mc": stats.get("core_calls_p", 0) + stats.get("decode_p", 0),
+            "haar_fwd": stats.get("core_calls_i", 0) * haar(2)
+            + stats.get("core_calls_p", 0) * haar(1),
             "hme_base": stats.get("hme_calls", 0),
             "hme_refine": stats.get("hme_calls", 0) * (levels + 1)
             + stats.get("hme_calls_wide", 0) * (levels + 2),
@@ -1233,6 +1262,347 @@ def phase_effort(dev, bound, smi, golden, clips):
     return rows, total
 
 
+def chunk_motion(dev, frames, C):
+    """The first C GOPs of a clip (gop 12, qp 85) as one chunk through
+    `GopEncoder.motion`: (encoder, images (C * 12, flat) per level, the
+    motion dict over the C * 11 P slots)."""
+    import numpy as np
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.parallel.gop import build_gop_encoder
+    from dsv1_tpu_torch.utils.golden import GOP, QUALITY_PCT
+
+    h, w = frames[0][0].shape
+    enc = build_gop_encoder(dt.SUBSAMP_420, w, h, GOP,
+                            dt.quality_percent(QUALITY_PCT), True, 4, 50,
+                            GOP - 1, 0, str(dev), None, 0)
+    rows = np.stack([np.concatenate([np.asarray(p, np.uint8).ravel()
+                                     for p in f]) for f in frames[:C * GOP]])
+    packed = torch.from_numpy(rows.reshape(C, GOP, -1)).to(dev)
+    imgs, _al, mv, _hr = enc.motion(packed)
+    return enc, imgs, mv
+
+
+def check_mc_batch(dev, enc, imgs, mv, C, seed):
+    """`mc` on a batch: the P frames of one frame index of a chunk's C
+    GOPs (the index with the most intra blocks; each GOP's previous input
+    frame as its reference) in one call, against the plain version and
+    against C single-frame calls, on the HME fields and on fuzzed ones
+    (random modes and submasks, MVs far past the plane edges). Times
+    (CUDA events, device-only sums) of the batched call and of the C = 1
+    call on the HME fields; work summed over the batch."""
+    import torch
+
+    from dsv1_tpu_torch.ops import mc
+    G, nb, W, H = enc.G, enc.nbh * enc.nbv, enc.w, enc.h
+    im = imgs[0].view(C, G, -1)
+    i = int(mv["nintra"].view(C, G - 1).sum(0).argmax()) + 1
+    ref = im[:, i - 1].contiguous()
+    gen = torch.Generator().manual_seed(seed)
+
+    def fuzz(hi, lo=0):
+        return torch.randint(lo, hi, (C, nb), generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    fields = [tuple(mv[k].view(C, G - 1, -1)[:, i - 1]
+                    for k in ("mode", "mvx", "mvy", "submask")),
+              (fuzz(2), fuzz(4 * W, -4 * W), fuzz(4 * H, -4 * H), fuzz(16))]
+    geo = (enc.layouts[0], enc.blk_w, enc.blk_h, enc.nbh, enc.nbv)
+    err_plain = err_single = 0
+    for f in fields:
+        got = mc.predict_frame(ref, *geo, *f)
+        err_plain = max(err_plain, max_abs_err(
+            got, mc.predict_frame_plain(ref, *geo, *f)))
+        err_single = max(err_single, max_abs_err(got, torch.stack([
+            mc.predict_frame(ref[z], *geo, *(x[z] for x in f))
+            for z in range(C)])))
+    f = fields[0]
+    kern = lambda: mc.predict_frame(ref, *geo, *f)  # noqa: E731
+    one = lambda: mc.predict_frame(ref[0], *geo,  # noqa: E731
+                                   *(x[0] for x in f))
+    planes, _ = mc.frame_geometry(*geo[:3])
+    work = [work_mc(planes, enc.nbh, enc.nbv, tuple(x[z] for x in f))
+            for z in range(C)]
+    ms, dev_ms = cuda_ms(kern, 50), device_ms(kern, 50)
+    return {"kernel": "mc", "size": f"{W}x{H}", "C": C, "frame_index": i,
+            "max_abs_err_plain": err_plain, "max_abs_err_single": err_single,
+            "ms": ms, "ms_per_frame": ms / C, "device_ms": dev_ms,
+            "device_ms_per_frame": dev_ms / C, "ms_c1": cuda_ms(one, 50),
+            "device_ms_c1": device_ms(one, 50),
+            "plain_ms": cuda_ms(lambda: mc.predict_frame_plain(ref, *geo,
+                                                               *f), 2),
+            "work": (sum(x[0] for x in work), sum(x[1] for x in work))}
+
+
+def check_haar_batch(dev, C, hs, ws, is_p, seed):
+    """`haar_fwd` on a batch: the pyramids of C planes (fwd_sbt's
+    arguments for C random (hs, ws) planes, P or I) in one C call,
+    against the plain version and against C single-plane calls. Times
+    (CUDA events, device-only sums) of the batched call and of the C = 1
+    call; work summed over the batch."""
+    import torch
+
+    from dsv1_tpu_torch.ops import sbt
+    cases = [haar_case(dev, hs, ws, is_p, seed + z) for z in range(C)]
+    cur = torch.stack([c[0] for c in cases])
+    out = torch.stack([c[1] for c in cases])
+    first, lvls = cases[0][2:]
+    out_k, out_p, single = out.clone(), out.clone(), out.clone()
+    sbt.haar_fwd_pyramid(cur, out_k, first, lvls)
+    sbt._haar_fwd_pyramid_plain(cur, out_p, first, lvls)
+    for z in range(C):
+        sbt.haar_fwd_pyramid(cur[z], single[z], first, lvls)
+    kern = lambda: sbt.haar_fwd_pyramid(cur, out_k, first, lvls)  # noqa
+    one = lambda: sbt.haar_fwd_pyramid(cur[0], single[0],  # noqa: E731
+                                       first, lvls)
+    ms, dev_ms = cuda_ms(kern, 50), device_ms(kern, 50)
+    nbytes, ops = work_haar(*cur.shape[1:])
+    return {"kernel": "haar_fwd", "size": f"{ws}x{hs}",
+            "plane": "P" if is_p else "I", "C": C,
+            "max_abs_err_plain": max_abs_err(out_k, out_p),
+            "max_abs_err_single": max_abs_err(out_k, single),
+            "ms": ms, "ms_per_plane": ms / C, "device_ms": dev_ms,
+            "device_ms_per_plane": dev_ms / C, "ms_c1": cuda_ms(one, 50),
+            "device_ms_c1": device_ms(one, 50),
+            "plain_ms": cuda_ms(lambda: sbt._haar_fwd_pyramid_plain(
+                cur, out_p, first, lvls), 2),
+            "work": (C * nbytes, C * ops)}
+
+
+def encode_metrics(fn, n: int) -> dict:
+    """fn() encodes n frames: after a warm-up, frames/s of one run and,
+    from one more run under torch.profiler, the device kernels and
+    device-to-host copies per encoded frame, the device busy share (the
+    kernels' and copies' device time over the run's wall) and the host
+    seconds of the encoder's spans, as tools/torch_profile.py reads
+    them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tools.torch_profile import SPANS
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    busy_us, kernels, reads, spans = 0.0, 0, 0, {}
+    for e in prof.key_averages():
+        if e.key in SPANS:
+            if e.device_type == DeviceType.CPU:
+                spans[e.key] = e.cpu_time_total * 1e-6
+            continue
+        if e.device_type != DeviceType.CUDA:
+            continue
+        busy_us += e.self_device_time_total
+        if not e.key.startswith(("Memcpy", "Memset")):
+            kernels += e.count
+        elif e.key.startswith("Memcpy DtoH"):
+            reads += e.count
+    if kernels == 0:
+        raise AssertionError("the profiler saw no device kernel")
+    return {"encode_fps": n / wall, "wall_s": wall,
+            "kernels_per_frame": kernels / n,
+            "host_reads_per_frame": reads / n,
+            "device_busy_share": busy_us * 1e-6 / pwall,
+            "profiled_wall_s": pwall, "spans_s": spans}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_shard_processes(clip: str, n: int, out: Path):
+    """`run_distributed_shard` in n processes on this card (gloo on
+    127.0.0.1, tools/torch_shard_worker.py), each waited for with its
+    own timeout and killed past it: (exit codes, each rank's JSON)."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "torch_shard_worker.py"),
+         f"127.0.0.1:{port}", str(n), str(r), str(out), "--clip", clip,
+         "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(n)]
+    ranks = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=SHARD_TIMEOUT_S)
+            lines = o.strip().splitlines()
+            ranks.append(json.loads(lines[-1]) if p.returncode == 0
+                         and lines else {"stderr": e[-2000:]})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], ranks
+
+
+def phase_batches(dev, bound, smi, golden, clips):
+    """Main path 5: several GOPs through each launch. First the batched
+    `mc` (C = 4 at CIF, the P frames of one frame index of a chunk; C = 2
+    at 1080p) and `haar_fwd` (C planes in one call) against their plain
+    versions and against C single calls. Then, each against its golden
+    with its launches predicted: `cif_batch` through encode_stream_gops
+    at its default chunk (4 GOPs, then a padded tail), where every P
+    call must carry 4 frames, with frames/s, kernels per encoded frame
+    and the device busy share at the default and at gops_per_device=1
+    (the same bytes); `cif_batch_cut` (stable_refresh 4, a cut in the
+    second GOP: carried stability states and a frame index split into P
+    and intra frames); `1080p_gopabr_batch` (-gopabr1 settings, 2 GOPs a
+    chunk: bytes of its own, not `1080p_gopabr_cli`'s); then
+    `cif_batch`'s clip through encode_stream_multihost with 3 shards in
+    this process and through run_distributed_shard in 2 processes on
+    this card, each muxed stream equal to `cif_batch`'s golden. Returns
+    ({kernel: largest batch error}, the launches summed over the
+    phase's paths)."""
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.kernels.build import LAUNCHES
+    from dsv1_tpu_torch.utils.golden import API, decoded_bytes, encode_args
+    from dsv1_tpu_torch.utils.stats import STATS
+
+    t_phase = time.perf_counter()
+
+    def since():
+        return time.perf_counter() - t_phase
+
+    checks = []
+    enc, imgs, mv = chunk_motion(dev, clips[BATCH_CLIP][1], 4)
+    checks.append(check_mc_batch(dev, enc, imgs, mv, 4, 31))
+    enc, imgs, mv = chunk_motion(dev, clips["1080p"][1], 2)
+    checks.append(check_mc_batch(dev, enc, imgs, mv, 2, 32))
+    del imgs, mv
+    for C, (hs, ws) in ((4, (288, 352)), (2, (1080, 1920))):
+        for is_p in (True, False):
+            checks.append(check_haar_batch(dev, C, hs, ws, is_p, 40))
+    errs = {}
+    for r in checks:
+        r["bound_ms"], r["bound_by"] = bound(*r.pop("work"))
+        emit({"phase": "batches", **r, "card": smi, "phase_s": since()})
+        errs[r["kernel"]] = max(errs.get(r["kernel"], 0),
+                                r["max_abs_err_plain"],
+                                r["max_abs_err_single"])
+    if any(errs.values()):
+        raise AssertionError(f"a batched kernel disagrees: {errs}")
+    torch.cuda.empty_cache()
+
+    total = {}
+
+    def run(path, fn, w, h, kernels=BASE_PATH):
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        STATS.clear()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = dict(LAUNCHES)
+        check_launches(path, got, kernels)
+        check_predicted(path, got, STATS, w, h)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return secs, got, dict(STATS), result
+
+    for name in (BATCH_CLIP, CUT_CLIP, GOPABR_BATCH_CLIP):
+        gold = golden[name]
+        yuv, frames = clips[name]
+        if sha(yuv) != gold["clip_sha256"]:
+            raise AssertionError(f"{name}: input clip differs from the "
+                                 "golden clip")
+        meta, cfg, kw = encode_args(name)
+        w, h, n = gold["width"], gold["height"], gold["frames"]
+
+        def encode(**extra):
+            return dt.encode_stream_gops(frames, meta, cfg, dev,
+                                         **{**kw, **extra})
+
+        t_enc, l_enc, st, stream = run(f"{name} encode", encode, w, h)
+        t_dec, l_dec, _, dec = run(f"{name} decode", lambda: (
+            dt.decode_stream_gops(stream, device=dev)[1]), w, h, ("mc",))
+        res = {"phase": "batches", "clip": name, "size": f"{w}x{h}",
+               "frames": n, "encode": API[name],
+               "stream_bytes": len(stream),
+               "stream_sha256_ok": sha(stream) == gold["stream_sha256"],
+               "decode_sha256_ok": sha(decoded_bytes(dec))
+               == gold["decode_sha256"],
+               "encode_fps": n / t_enc, "decode_fps": n / t_dec,
+               "encode_launches": l_enc, "decode_launches": l_dec,
+               "launches_as_predicted": True, "chunks": st["chunks"],
+               "core_calls_p": st.get("core_calls_p", 0),
+               "p_frames_per_call": st.get("core_p", 0)
+               / max(st.get("core_calls_p", 0), 1),
+               "core_calls_i": st.get("core_calls_i", 0),
+               "stab_carried": st.get("stab_carried", 0),
+               "overflow_redos": st.get("overflow_redos", 0)}
+        if name == BATCH_CLIP:
+            # 4 GOPs through every P launch; then the same encode at 4
+            # and at 1 GOP a chunk, timed and profiled
+            res["every_p_call_4_gops"] = st["core_p"] == 4 * st["core_calls_p"]
+            streams_c1 = []
+
+            def encode_c1():
+                streams_c1.append(encode(gops_per_device=1))
+
+            res.update(metrics_c4=encode_metrics(encode, n),
+                       metrics_c1=encode_metrics(encode_c1, n))
+            res["c1_stream_equal_ok"] = all(x == stream for x in streams_c1)
+        elif name == CUT_CLIP:
+            res["stab_carried_ok"] = st.get("stab_carried", 0) > 0
+            res["mixed_frame_index_ok"] = st["core_calls_i"] > st["chunks"]
+        else:
+            res["differs_from_gopabr_cli_ok"] = (
+                gold["stream_sha256"] != golden[GOPABR_CLIP]["stream_sha256"])
+        res.update(card=smi, phase_s=since())
+        emit(res)
+        bad = [k for k, v in res.items() if (k.endswith("_ok")
+                                             or k.startswith("every_"))
+               and not v]
+        if bad:
+            raise AssertionError(f"{name}: {bad} failed")
+
+    gold = golden[BATCH_CLIP]
+    meta, cfg, _kw = encode_args(BATCH_CLIP)
+    frames = clips[BATCH_CLIP][1]
+    t_mh, l_mh, st, stream = run("cif_shards encode_stream_multihost", (
+        lambda: dt.encode_stream_multihost(frames, meta, cfg, n_shards=3,
+                                           device=dev)),
+        gold["width"], gold["height"])
+    with tempfile.TemporaryDirectory() as td:
+        out = Path(td) / "shards.dsv"
+        t0 = time.perf_counter()
+        codes, ranks = run_shard_processes(BATCH_CLIP, 2, out)
+        t_proc = time.perf_counter() - t0
+        procs_ok = codes == [0, 0] and out.exists() \
+            and sha(out.read_bytes()) == gold["stream_sha256"]
+    res = {"phase": "batches", "clip": "cif_shards",
+           "multihost_3_shards_sha256_ok": sha(stream)
+           == gold["stream_sha256"], "multihost_seconds": t_mh,
+           "multihost_launches": l_mh, "launches_as_predicted": True,
+           "chunks": st["chunks"], "two_processes_sha256_ok": procs_ok,
+           "two_processes_exit_codes": codes, "ranks": ranks,
+           "two_processes_seconds": t_proc, "card": smi,
+           "phase_s": since()}
+    emit(res)
+    bad = [k for k, v in res.items() if k.endswith("_ok") and not v]
+    if bad:
+        raise AssertionError(f"cif_shards: {bad} failed")
+    emit({"phase": "batches", "launches": total})
+    return errs, total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1261,10 +1631,20 @@ def main():
     effort_r, effort_l = phase_effort(dev, Bound(clock_hz), smi, golden,
                                       clips)
     rows += effort_r
+    batch_err, batch_l = phase_batches(dev, Bound(clock_hz), smi, golden,
+                                       clips)
+    for r in rows:
+        if r["name"] in batch_err:
+            r["max_abs_err"] = max(r["max_abs_err"], batch_err[r["name"]])
+    # every main path's launches; 4k_cli's level 0 is #4's work (the JAX
+    # package's banded kernel), counted on its own row
+    banded = cli_l["4k_cli"]["hme_base"]
     path_launches = {k: slice_l.get(k, 0) + seq_l.get(k, 0)
-                     + cli_l[GOPABR_CLIP].get(k, 0) + effort_l.get(k, 0)
+                     + sum(c.get(k, 0) for c in cli_l.values())
+                     + effort_l.get(k, 0) + batch_l.get(k, 0)
                      for k in KERNELS}
-    path_launches["hme_base_banded"] = cli_l["4k_cli"]["hme_base"]
+    path_launches["hme_base"] -= banded
+    path_launches["hme_base_banded"] = banded
     for r in rows:
         r["launches"] = path_launches[r["name"]]
     emit({"kernels": [{k: r[k] for k in ROW_KEYS} for r in rows]})

@@ -3,8 +3,11 @@
 A port of the JAX package `dsv1_tpu` (which stays the reference): the
 GOP-parallel encode with CRF, the reference's per-frame ABR law or
 GOP-granular ABR, and intra-only CRF at gop 0 (`encode_stream_gops`),
-with each frame's quantized planes compacted on the device and each GOP
-packed natively, its decode twin
+several GOPs through each kernel launch (`gops_per_device`), with each
+frame's quantized planes compacted on the device and each chunk of GOPs
+packed natively, the GOP-sharded encode across processes
+(`encode_stream_multihost`, `run_distributed_shard` on
+torch.distributed), its decode twin
 (`decode_stream_gops`, `iter_decode_gops`), the sequential,
 resumable `Encoder` and `Decoder` (with the `draw_info` overlay) and the
 CLI (`python -m dsv1_tpu_torch.cli e|d`). Tensor work is PyTorch; the five
@@ -31,15 +34,19 @@ from .models.metadata import Metadata
 from .models.decoder import (DEC_EOS, DEC_ERROR, DEC_GOT_META, DEC_OK,
                              Decoder)
 from .models.encoder import Encoder, EncoderConfig
-from .parallel import decode_stream_gops, encode_stream_gops, \
-    iter_decode_gops
+from .parallel import (EncodedShard, decode_stream_gops, encode_shard,
+                       encode_stream_gops, encode_stream_multihost,
+                       iter_decode_gops, mux_shards, run_distributed_shard,
+                       shard_ranges)
 from .state import EncoderState, state_from_numpy
 
 __all__ = ["SUBSAMP_444", "SUBSAMP_422", "SUBSAMP_420", "SUBSAMP_411",
            "MAX_QUALITY", "RATE_CONTROL_ABR", "RATE_CONTROL_CRF",
            "quality_percent", "Metadata", "EncoderConfig", "EncoderState",
            "state_from_numpy", "encode_stream_gops", "decode_stream_gops",
-           "iter_decode_gops", "Encoder", "Decoder", "DEC_OK", "DEC_ERROR",
-           "DEC_EOS", "DEC_GOT_META"]
+           "iter_decode_gops", "EncodedShard", "shard_ranges",
+           "encode_shard", "mux_shards", "encode_stream_multihost",
+           "run_distributed_shard", "Encoder", "Decoder", "DEC_OK",
+           "DEC_ERROR", "DEC_EOS", "DEC_GOT_META"]
 
 __version__ = "0.1.0"

@@ -189,16 +189,9 @@ def _profile(path):
     prof.export_chrome_trace(str(Path(path) / "trace.json"))
 
 
-def encode_main(argv, device="cuda") -> int:
-    params = enc_params()
-    opts = _parse(argv, params)
-    if opts is None or "help" in argv:
-        _usage(params, "e")
-        return 1
-    if not opts["inp"] or not opts["out"]:
-        print("inp or out was not specified!")
-        _usage(params, "e")
-        return 1
+def _config(params):
+    """(Metadata, EncoderConfig, whether the GOP-parallel encoder runs,
+    abr_mode) of parsed encode parameters."""
     w, h = _get(params, "w"), _get(params, "h")
     subsamp = _get(params, "fmt")
     meta = Metadata(w, h, subsamp, _get(params, "fps_num"),
@@ -233,6 +226,31 @@ def encode_main(argv, device="cuda") -> int:
         scene_change_delta=_get(params, "schdelta"),
         stable_refresh=stabref, pyramid_levels=_get(params, "pyrlevels"),
         effort=_get(params, "effort"))
+    return meta, cfg, use_par, abr_mode
+
+
+def encode_config(argv):
+    """(Metadata, EncoderConfig, abr_mode) the CLI's encode builds from
+    `argv` (its options after `e`; -inp_ and -out_ may be left out)."""
+    params = enc_params()
+    if _parse(argv, params) is None:
+        raise ValueError(f"bad encode arguments: {argv}")
+    meta, cfg, _use_par, abr_mode = _config(params)
+    return meta, cfg, abr_mode
+
+
+def encode_main(argv, device="cuda") -> int:
+    params = enc_params()
+    opts = _parse(argv, params)
+    if opts is None or "help" in argv:
+        _usage(params, "e")
+        return 1
+    if not opts["inp"] or not opts["out"]:
+        print("inp or out was not specified!")
+        _usage(params, "e")
+        return 1
+    meta, cfg, use_par, abr_mode = _config(params)
+    w, h, subsamp = meta.width, meta.height, meta.subsamp
     frno = _get(params, "sfr")
     nfr = _get(params, "nfr")
     maxframe = frno + nfr if nfr > 0 else -1

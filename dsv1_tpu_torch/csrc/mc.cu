@@ -1,6 +1,6 @@
-// Motion-compensated prediction of a whole frame (all three planes) in one
-// launch, one thread block per motion block of each plane, the half-pel
-// filter of the block's phase inside the kernel.
+// Motion-compensated prediction of a batch of frames (all three planes of
+// each) in one launch, one thread block per motion block of each plane of
+// each frame, the half-pel filter of the block's phase inside the kernel.
 //
 // Replaces the Pallas TPU kernel `_mc_kernel` (dsv1_tpu/ops/pallas_mc.py:38,
 // wrapper compensate_plane_pallas) together with the whole-image half-pel
@@ -44,6 +44,13 @@
 // bytes) and every thread filters its pixels from there, so no variant
 // plane is ever written to device memory and the whole frame is one
 // launch with no host work per plane.
+//
+// Batch: grid z is the frame of the batch. Frame z reads its reference
+// image at img + z * img_stride (each image n bytes: the zero rule of
+// trap 2 holds per image), its four fields at + z * fstride and writes
+// its prediction at out + z * out_stride. The GOP encoder predicts the P
+// frames of one frame index of every GOP of a chunk in one launch; a
+// batch of one is the single-frame call.
 
 #include "common.cuh"
 
@@ -77,13 +84,22 @@ __device__ __forceinline__ int u8(int v) { return clampi(v, 0, 255); }
 }  // namespace
 
 __global__ void __launch_bounds__(kThreads)
-mc_frame_kernel(const uint8_t* __restrict__ img, int64_t n, McFrame f,
-                int nbh, const int* __restrict__ modes,
-                const int* __restrict__ mvx, const int* __restrict__ mvy,
-                const int* __restrict__ sub, uint8_t* __restrict__ out) {
+mc_frame_kernel(const uint8_t* __restrict__ img, int64_t n,
+                int64_t img_stride, McFrame f, int nbh,
+                const int* __restrict__ modes, const int* __restrict__ mvx,
+                const int* __restrict__ mvy, const int* __restrict__ sub,
+                int64_t fstride, uint8_t* __restrict__ out,
+                int64_t out_stride) {
   __shared__ uint8_t nb[kNbMax];
   __shared__ int red[5 * kWarps];
   const int t = blockIdx.x, c = blockIdx.y;
+  const int64_t fz = blockIdx.z;  // the frame of the batch
+  img += fz * img_stride;
+  modes += fz * fstride;
+  mvx += fz * fstride;
+  mvy += fz * fstride;
+  sub += fz * fstride;
+  out += fz * out_stride;
   const McPlane P = f.p[c];
   const int gj = t / nbh, gi = t - gj * nbh;
   const int BW = P.BW, BH = P.BH, S = P.S;
@@ -186,12 +202,16 @@ mc_frame_kernel(const uint8_t* __restrict__ img, int64_t n, McFrame f,
 
 // geo: host array of 3 x 11 int64 per plane (start, out_off, EH, S, E, w,
 // h, BW, BH, sh, sv), then FRAME_BORDER and MODE_INTER. Fields: nbh * nbv
-// int32 each. out: the three (h, w) planes back to back.
+// int32 each per frame. out: per frame the three (h, w) planes back to
+// back. nbatch frames, frame z's image, fields and output at z times
+// img_stride, fstride and out_stride elements.
 extern "C" int dsv1_mc_frame(const uint8_t* img, int64_t n,
-                             const int64_t* geo, int nbh, int nbv,
-                             const int* modes, const int* mvx,
-                             const int* mvy, const int* sub, uint8_t* out,
+                             int64_t img_stride, const int64_t* geo, int nbh,
+                             int nbv, const int* modes, const int* mvx,
+                             const int* mvy, const int* sub, int64_t fstride,
+                             uint8_t* out, int64_t out_stride, int nbatch,
                              cudaStream_t stream) {
+  if (nbatch < 1 || nbatch > 65535) return (int)cudaErrorInvalidValue;
   McFrame f;
   for (int c = 0; c < 3; ++c) {
     const int64_t* g = geo + 11 * c;
@@ -212,7 +232,8 @@ extern "C" int dsv1_mc_frame(const uint8_t* img, int64_t n,
   }
   f.border = (int)geo[33];
   f.mode_inter = (int)geo[34];
-  mc_frame_kernel<<<dim3(nbh * nbv, 3), kThreads, 0, stream>>>(
-      img, n, f, nbh, modes, mvx, mvy, sub, out);
+  mc_frame_kernel<<<dim3(nbh * nbv, 3, nbatch), kThreads, 0, stream>>>(
+      img, n, img_stride, f, nbh, modes, mvx, mvy, sub, fstride, out,
+      out_stride);
   return (int)cudaGetLastError();
 }

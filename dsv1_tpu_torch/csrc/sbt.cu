@@ -1,5 +1,5 @@
-// The whole forward Haar pyramid of one plane in one C call: a tile stage
-// and a coarse stage.
+// The whole forward Haar pyramid of a batch of planes in one C call: a tile
+// stage and a coarse stage.
 //
 // Replaces the Pallas TPU kernel `kern` (tools/bench_haar.py:169, the fused
 // Haar level that sbt.fwd_sbt computes at every Haar level): row-pair sums
@@ -32,6 +32,13 @@
 // no level is left, else to the (gh, gw) grid `mid`, one value per tile.
 // Coarse stage: one block loads `mid` into shared memory and runs the
 // remaining levels there (at most 68 x 120 values at 8K: 32 KB).
+//
+// Batch: the tile stage's grid z and the coarse stage's blocks are the
+// planes of the batch (plane z at src + z * sbatch, out + z * obatch, its
+// coarse grid at mid + z * gh * gw); a coarse block's shared memory holds
+// its own plane's grid only. The GOP encoder runs the pyramids of one
+// frame index of every GOP of a chunk this way; a batch of one is the
+// single-plane call.
 //
 // Bound by memory: each input int32 is read once and each band value and
 // the final LL written once (8 bytes per pixel of the region), about 3
@@ -79,12 +86,17 @@ __device__ __forceinline__ void haar_level(const int* src, int ss, int rows,
 }  // namespace
 
 __global__ void __launch_bounds__(kThreads)
-haar_tile_kernel(const int* __restrict__ src, int64_t sstride, int hs, int ws,
-                 int first, int nlev, int* __restrict__ out, int64_t ostride,
-                 int* __restrict__ mid, int gw) {
+haar_tile_kernel(const int* __restrict__ src, int64_t sstride,
+                 int64_t sbatch, int hs, int ws, int first, int nlev,
+                 int* __restrict__ out, int64_t ostride, int64_t obatch,
+                 int* __restrict__ mid, int gh, int gw) {
   __shared__ __align__(16) int buf_a[kTile * kTile];
   __shared__ __align__(16) int buf_b[(kTile / 2) * (kTile / 2)];
   const int ty = blockIdx.y, tx = blockIdx.x;
+  const int64_t pz = blockIdx.z;  // the plane of the batch
+  src += pz * sbatch;
+  out += pz * obatch;
+  if (mid) mid += pz * gh * gw;
   const int r0 = ty * kTile, c0 = tx * kTile;
   const int rows = min(kTile, hs - r0), cols = min(kTile, ws - c0);
 
@@ -138,8 +150,11 @@ haar_tile_kernel(const int* __restrict__ src, int64_t sstride, int hs, int ws,
 
 __global__ void __launch_bounds__(kThreads)
 haar_coarse_kernel(const int* __restrict__ mid, int gh, int gw, int first,
-                   int lvls, int* __restrict__ out, int64_t ostride) {
+                   int lvls, int* __restrict__ out, int64_t ostride,
+                   int64_t obatch) {
   extern __shared__ int smem[];
+  mid += (int64_t)blockIdx.x * gh * gw;  // one block per plane
+  out += blockIdx.x * obatch;
   // ping-pong: a holds the grid and every second level's LL, b the others
   int* a = smem;
   int* b = smem + gh * gw;
@@ -164,23 +179,26 @@ haar_coarse_kernel(const int* __restrict__ mid, int gh, int gw, int first,
   }
 }
 
-// Levels first..lvls of the (hs, ws) region at src into out. mid: scratch
-// of ceil(hs / 64) * ceil(ws / 64) ints, used when more than 6 levels run.
-// Launches the tile stage and, past 6 levels, the coarse stage: returns
-// cudaGetLastError() after them.
-extern "C" int dsv1_haar_pyramid(const int* src, int64_t sstride, int hs,
-                                 int ws, int first, int lvls, int* out,
-                                 int64_t ostride, int* mid,
+// Levels first..lvls of the (hs, ws) region of each of nbatch planes at
+// src (plane z at src + z * sbatch) into out (+ z * obatch). mid: scratch
+// of nbatch * ceil(hs / 64) * ceil(ws / 64) ints, used when more than 6
+// levels run. Launches the tile stage and, past 6 levels, the coarse
+// stage: returns cudaGetLastError() after them.
+extern "C" int dsv1_haar_pyramid(const int* src, int64_t sstride,
+                                 int64_t sbatch, int hs, int ws, int first,
+                                 int lvls, int* out, int64_t ostride,
+                                 int64_t obatch, int nbatch, int* mid,
                                  cudaStream_t stream) {
   const int nall = lvls - first + 1;
-  if (hs < 1 || ws < 1 || first < 1 || nall < 1)
+  if (hs < 1 || ws < 1 || first < 1 || nall < 1 || nbatch < 1 ||
+      nbatch > 65535)
     return (int)cudaErrorInvalidValue;
   const int nt = nall < kTileLevels ? nall : kTileLevels;
   const int gh = (hs + kTile - 1) / kTile, gw = (ws + kTile - 1) / kTile;
   const bool coarse = nall > kTileLevels;
-  haar_tile_kernel<<<dim3(gw, gh), kThreads, 0, stream>>>(
-      src, sstride, hs, ws, first, nt, out, ostride, coarse ? mid : nullptr,
-      gw);
+  haar_tile_kernel<<<dim3(gw, gh, nbatch), kThreads, 0, stream>>>(
+      src, sstride, sbatch, hs, ws, first, nt, out, ostride, obatch,
+      coarse ? mid : nullptr, gh, gw);
   if (coarse) {
     const int nb = (gh + 1) / 2 * ((gw + 1) / 2);
     const size_t smem = (size_t)(gh * gw + nb) * sizeof(int);
@@ -190,8 +208,8 @@ extern "C" int dsv1_haar_pyramid(const int* src, int64_t sstride, int hs,
           (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    haar_coarse_kernel<<<1, kThreads, smem, stream>>>(
-        mid, gh, gw, first + kTileLevels, lvls, out, ostride);
+    haar_coarse_kernel<<<nbatch, kThreads, smem, stream>>>(
+        mid, gh, gw, first + kTileLevels, lvls, out, ostride, obatch);
   }
   return (int)cudaGetLastError();
 }

@@ -86,7 +86,8 @@ def lib():
     if _lib is None:
         L = ctypes.CDLL(str(build()))
         P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        L.dsv1_mc_frame.argtypes = [P, I64, P, I, I, P, P, P, P, P, P]
+        L.dsv1_mc_frame.argtypes = [P, I64, I64, P, I, I, P, P, P, P, I64, P,
+                                    I64, I, P]
         L.dsv1_hme_refine.argtypes = [P, P, P, I64, I, I, I, I, I, I, I, I,
                                       I, I, I, I, P, P, P, P]
         L.dsv1_hme_coarse.argtypes = [P, I, I, I, I, I, I, P, P, P]
@@ -94,7 +95,8 @@ def lib():
                                     I, I, I, P, P, P, P, P, P, P]
         L.dsv1_hme_wide.argtypes = [P, P, I64, I64, I64] + [I] * 12 \
             + [P] * 10
-        L.dsv1_haar_pyramid.argtypes = [P, I64, I, I, I, I, P, I64, P, P]
+        L.dsv1_haar_pyramid.argtypes = [P, I64, I64, I, I, I, I, P, I64, I64,
+                                        I, P, P]
         for fn in (L.dsv1_mc_frame, L.dsv1_hme_refine, L.dsv1_hme_coarse,
                    L.dsv1_hme_base, L.dsv1_hme_wide, L.dsv1_haar_pyramid):
             fn.restype = ctypes.c_int

@@ -4,7 +4,9 @@
 and the smallest level's average luma (for scene-change detection);
 `make_encode_core_traced` runs one frame's prediction/residual, forward
 transform, quantization with in-loop write-back and (optionally) recon
-for all three planes (encode_picture core, dsv_encoder.c:505-526);
+for all three planes (encode_picture core, dsv_encoder.c:505-526), or
+the same for a batch of frames of one type (the GOP encoder's frames of
+one frame index across a chunk's GOPs: one launch of each kernel);
 `pack_picture` assembles the picture packet on the host
 (native/dsvbits.cpp). `Encoder` is the sequential encoder: one frame per
 call, the GOP, scene-change, rate and stability decisions on the host in
@@ -152,50 +154,66 @@ def make_encode_core_traced(subsamp: int, w: int, h: int, blk_w: int,
     """f(input_img, ref_recon_img, is_p, quant, stable_blocks, modes, mvx,
     mvy, submask) -> (qvals per plane, dcs per plane, recon image).
 
-    is_p is a python bool (the frame type is known on the host); the
-    prediction is built only for P frames. Without `want_recon` the
-    inverse transform and the residual add are skipped and the recon
-    image is None (gop 0: no frame is a reference)."""
+    One frame: images (n,), stable_blocks and fields (nbh * nbv) each;
+    or C frames of the same type: images (C, n), stable_blocks and fields
+    (C, ...), and each output gains the leading C. is_p is a python bool
+    (the frame type is known on the host); the prediction is built only
+    for P frames. Without `want_recon` the inverse transform and the
+    residual add are skipped and the recon image is None (gop 0: no
+    frame is a reference)."""
     layout, coef_dims, tables = coef_geometry(subsamp, w, h, nbh, nbv)
 
     def f(input_img, ref_recon_img, is_p: bool, quant: int, stable_blocks,
           modes, mvx, mvy, submask):
+        batch = input_img.dim() == 2
+        if not batch:
+            input_img = input_img[None]
+            ref_recon_img = (None if ref_recon_img is None
+                             else ref_recon_img[None])
+            stable_blocks = stable_blocks.reshape(1, -1)
+        C = input_img.shape[0]
         qvals, dcs, recon_planes = [], [], []
         if is_p:
-            preds = bmc.compensate_frame(ref_recon_img, layout, blk_w, blk_h,
-                                         nbh, nbv, modes, mvx, mvy, submask)
+            preds = bmc.compensate_frame(
+                ref_recon_img, layout, blk_w, blk_h, nbh, nbv,
+                *(x.reshape(C, -1) for x in (modes, mvx, mvy, submask)))
         for c in range(3):
             p = layout.planes[c]
             cw, ch = coef_dims[c]
             src_ext = fr.plane_view_ext(input_img, layout, c, cw - p.w)
-            src_core = src_ext[:p.h, :p.w]
+            src_core = src_ext[:, :p.h, :p.w]
             if is_p:
                 pred = preds[c]
                 core = bmc.sub_residual(src_core, pred)
             else:
                 core = src_core
-            coefs = torch.zeros((ch, cw), dtype=torch.int32,
+            coefs = torch.zeros((C, ch, cw), dtype=torch.int32,
                                 device=input_img.device)
-            coefs[:p.h, :p.w] = core.to(torch.int32) - 128
+            coefs[:, :p.h, :p.w] = core.to(torch.int32) - 128
             if cw > p.w:
                 # p2sbc reads the replicated border column (original edge)
-                coefs[:p.h, p.w:cw] = src_ext[:p.h, p.w:cw].to(torch.int32) \
-                    - 128
+                coefs[:, :p.h, p.w:cw] = \
+                    src_ext[:, :p.h, p.w:cw].to(torch.int32) - 128
             coefs = sbt.fwd_sbt(coefs, is_p)
             qv, wb = hzcc.encode_plane_core(coefs, quant, is_p, c,
                                             stable_blocks, tables[c])
             qvals.append(qv)
-            dcs.append(coefs[0, 0])
+            dcs.append(coefs[:, 0, 0])
             if not want_recon:
                 continue
-            rp = sbt.coefs_to_plane(
-                sbt.inv_sbt(wb, quant, is_p, is_luma=(c == 0)))[:p.h, :p.w]
+            rp = sbt.coefs_to_plane(sbt.inv_sbt(
+                wb, quant, is_p, is_luma=(c == 0)))[:, :p.h, :p.w]
             if is_p:
                 rp = bmc.add_residual(pred, rp)
             recon_planes.append(rp)
         recon = (fr.image_from_planes(layout, recon_planes) if want_recon
                  else None)
-        return qvals, dcs, recon
+        STATS["core_p" if is_p else "core_i"] += C
+        STATS["core_calls_p" if is_p else "core_calls_i"] += 1
+        if batch:
+            return qvals, dcs, recon
+        return ([q[0] for q in qvals], [d[0] for d in dcs],
+                None if recon is None else recon[0])
 
     return f
 
@@ -236,44 +254,74 @@ def _wrap16(x):
     return ((x + 0x8000) & 0xFFFF) - 0x8000
 
 
-def _stable_update(stability, refresh_ctr: int, is_p: bool, mv,
-                   stable_refresh: int):
+def _stable_update(stability, refresh_ctr, is_p, mv, stable_refresh: int):
     """Stability accumulator logic (encode_stable_blocks,
-    dsv_encoder.c:329-400) on an int32 (nblk, 2) tensor.
+    dsv_encoder.c:329-400) on an int32 (nblk, 2) tensor, refresh_ctr a
+    host int and is_p a host bool; or on a batch: stability (k, nblk, 2),
+    refresh_ctr and is_p sequences of k host values, the motion fields
+    (k, ...).
 
-    Returns (stability', refresh_ctr', stable_blocks u8: bit0 stable,
-    bit1 intra). mv is the frame's motion dict (ignored for I frames)."""
-    if refresh_ctr >= stable_refresh:
-        refresh_ctr = 0
+    Returns (stability', refresh_ctr' (after the reset check, before the
+    P frame's increment), stable_blocks u8: bit0 stable, bit1 intra).
+    mv is the frame's motion dict (ignored for I frames; None when no
+    frame of the batch is P)."""
+    if stability.dim() == 2:
+        one = None if mv is None else {k: v.reshape(1, -1)
+                                       for k, v in mv.items()}
+        stab, ctrs, sb = _stable_update(stability[None], [refresh_ctr],
+                                        [is_p], one, stable_refresh)
+        return stab[0], ctrs[0], sb[0]
+    k, dev = stability.shape[0], stability.device
+    is_p = [bool(p) for p in is_p]
+    reset = [c >= stable_refresh for c in refresh_ctr]
+    ctrs = [0 if r else int(c) for r, c in zip(reset, refresh_ctr)]
+    divs = [max(c, 1) for c in ctrs]
+    if all(reset):
         stability = torch.zeros_like(stability)
-    avgdiv = max(refresh_ctr, 1)
+    if len(set(divs)) == len(set(is_p)) == len(set(reset)) == 1:
+        avgdiv, p_mask = divs[0], None
+    else:
+        # per-batch-element values: one small host-to-device copy
+        sched = torch.tensor([divs, is_p, [not r for r in reset]],
+                             dtype=torch.int32).to(dev, non_blocking=True)
+        avgdiv = sched[0][:, None]
+        p_mask = sched[1][:, None] != 0
+        if any(reset) and not all(reset):
+            stability = stability * sched[2][:, None, None]
 
     def avg(s):
         return torch.sign(s) * torch.div(s.abs(), avgdiv,
                                          rounding_mode="floor")
 
-    sx0, sy0 = stability[:, 0], stability[:, 1]
-    if is_p:
-        inter = mv["mode"].reshape(-1) == MODE_INTER
+    sx0, sy0 = stability[..., 0], stability[..., 1]
+    if any(is_p):
+        def fld(name):
+            return mv[name].reshape(k, -1)
+
+        inter = fld("mode") == MODE_INTER
         sxp = _wrap16(torch.where(
-            inter, sx0 + (mv["mvx"].reshape(-1).to(torch.int32).abs() >> 2),
-            sx0))
+            inter, sx0 + (fld("mvx").to(torch.int32).abs() >> 2), sx0))
         syp = _wrap16(torch.where(
-            inter, sy0 + (mv["mvy"].reshape(-1).to(torch.int32).abs() >> 2),
-            sy0))
-        lo = (mv["lo_tex"].reshape(-1) != 0) | (mv["lo_var"].reshape(-1) != 0)
-        stable = (mv["high_detail"].reshape(-1) != 0) \
+            inter, sy0 + (fld("mvy").to(torch.int32).abs() >> 2), sy0))
+        lo = (fld("lo_tex") != 0) | (fld("lo_var") != 0)
+        stable_p = (fld("high_detail") != 0) \
             | ((avg(sxp) == 0) & (avg(syp) == 0) & ~lo)
-        stable &= inter
-        intra_blk = ~inter
-        stability = torch.stack([torch.where(lo, 0x3FFF, sxp),
-                                 torch.where(lo, 0x3FFF, syp)], dim=1) \
+        stable_p &= inter
+        stab_p = torch.stack([torch.where(lo, 0x3FFF, sxp),
+                              torch.where(lo, 0x3FFF, syp)], dim=-1) \
             .to(torch.int32)
+    if not all(is_p):
+        stable_i = (avg(sx0) == 0) & (avg(sy0) == 0)
+    if all(is_p):
+        stable, intra_blk, stability = stable_p, ~inter, stab_p
+    elif not any(is_p):
+        stable, intra_blk = stable_i, torch.zeros_like(stable_i)
     else:
-        stable = (avg(sx0) == 0) & (avg(sy0) == 0)
-        intra_blk = torch.zeros_like(stable)
+        stable = torch.where(p_mask, stable_p, stable_i)
+        intra_blk = p_mask & ~inter
+        stability = torch.where(p_mask[..., None], stab_p, stability)
     stable_blocks = stable.to(torch.uint8) | (intra_blk.to(torch.uint8) << 1)
-    return stability, refresh_ctr, stable_blocks
+    return stability, ctrs, stable_blocks
 
 
 def quality2quant_abr(st, cfg, meta, is_p: bool, forced_intra: bool) -> int:
@@ -519,7 +567,6 @@ class Encoder:
                      else (None,) * 4)
             qvals, dcs, recon = core(imgs[0], self._ref_recon, has_ref,
                                      quant, stable, *margs)
-            STATS["core_p" if has_ref else "core_i"] += 1
             qv, dc, stable_h = self._compacted(qvals, dcs, stable, has_ref,
                                                quant)
             self.stable_blocks = stable_h

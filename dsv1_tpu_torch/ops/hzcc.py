@@ -14,7 +14,9 @@ the values earlier bands wrote back, as in the reference.
 planes on the device before the host reads them (intra planes as dense
 int8 plus the LL's large values, P planes as capped (run, value) lists),
 with the JAX package's layouts and overflow verdicts; `sparse_cap_div`
-sizes the P cap from the quant.
+sizes the P cap from the quant. `encode_plane_core` and the compactions
+take any leading batch dimensions (the planes of one frame index of
+every GOP of a chunk), each element on its own.
 """
 
 from dataclasses import dataclass
@@ -113,10 +115,10 @@ def dequant_hi(v, s):
 
 
 def _band_stable(stable2d, bj, bi):
-    """(sh, sw) stability flags of a band's positions."""
+    """(..., sh, sw) stability flags of a band's positions."""
     dev = stable2d.device
-    return stable2d.index_select(0, torch.as_tensor(bj, device=dev)) \
-        .index_select(1, torch.as_tensor(bi, device=dev))
+    return stable2d.index_select(-2, torch.as_tensor(bj, device=dev)) \
+        .index_select(-1, torch.as_tensor(bi, device=dev))
 
 
 def _qparam(qp0, qp1, lvl: int, st):
@@ -127,17 +129,19 @@ def encode_plane_core(coefs, q: int, is_p: bool, plane_idx: int,
                       stable_blocks, tables: TraversalTables):
     """Quantize + in-loop write-back (hzcc_enc, hzcc.c:138-293).
 
-    coefs: (H, W) int32 from fwd_sbt. Returns (qvals[N] quantized values
-    in traversal order, recon coefs with the dequantized write-back and
-    the raw DC restored)."""
+    coefs: (..., H, W) int32 from fwd_sbt, stable_blocks (..., nblk).
+    Returns (qvals (..., N) quantized values in traversal order, recon
+    coefs with the dequantized write-back and the raw DC restored)."""
     work = coefs.to(torch.int32).clone()
-    dc = work[0, 0].clone()
-    work[0, 0] = 0  # hzcc.c:171 src[0] = 0
+    lead = work.shape[:-2]
+    dc = work[..., 0, 0].clone()
+    work[..., 0, 0] = 0  # hzcc.c:171 src[0] = 0
     qp_ll, qp0, qp1, qp2, qp2h = frame_quants(q, is_p, plane_idx)
-    stable2d = stable_blocks.to(torch.int32).reshape(tables.nbv, tables.nbh)
+    stable2d = stable_blocks.to(torch.int32).reshape(
+        lead + (tables.nbv, tables.nbh))
     qparts = []
     for (lvl, oy, ox, sh, sw, bj, bi) in tables.segs:
-        vals = work[oy:oy + sh, ox:ox + sw]
+        vals = work[..., oy:oy + sh, ox:ox + sw]
         if lvl == -1:
             qv = quant_lo(vals, qp_ll)
             wb = dequant_lo(qv, qp_ll)
@@ -151,10 +155,10 @@ def encode_plane_core(coefs, q: int, is_p: bool, plane_idx: int,
                 s = torch.where(st != 0, qp2h, qp2)
                 qv = quant_hi(vals, s)
                 wb = dequant_hi(qv, s)
-        work[oy:oy + sh, ox:ox + sw] = torch.where(qv == 0, 0, wb)
-        qparts.append(qv.reshape(-1))
-    work[0, 0] = dc  # dsv_encode_plane restores the raw DC
-    return torch.cat(qparts), work
+        work[..., oy:oy + sh, ox:ox + sw] = torch.where(qv == 0, 0, wb)
+        qparts.append(qv.reshape(lead + (-1,)))
+    work[..., 0, 0] = dc  # dsv_encode_plane restores the raw DC
+    return torch.cat(qparts, dim=-1), work
 
 
 def dequant_plane_grid(qgrid, dc: int, q: int, is_p: bool, plane_idx: int,
@@ -188,15 +192,17 @@ def ll_size(tables: TraversalTables) -> int:
 
 
 def _first_positions(flags, K: int, fill: int):
-    """Indices of the first K true entries of the 1-D bool tensor flags,
-    in order, `fill` past the last one, and the count of true entries:
-    the k-th true entry is the first index where the running count
-    reaches k (cumsum + searchsorted: fixed shapes, no host sync)."""
-    c = torch.cumsum(flags.to(torch.int32), 0, dtype=torch.int32)
-    cnt = c[-1]
+    """Indices of the first K true entries of the bool tensor flags
+    (..., n), in order, `fill` past the last one, and the count of true
+    entries (...): the k-th true entry is the first index where the
+    running count reaches k (cumsum + searchsorted: fixed shapes, no host
+    sync)."""
+    c = torch.cumsum(flags.to(torch.int32), -1, dtype=torch.int32)
+    cnt = c[..., -1]
     k = torch.arange(1, K + 1, dtype=torch.int32, device=flags.device)
-    pos = torch.searchsorted(c, k, side="left").to(torch.int32)
-    pos = torch.where(k <= cnt, pos, fill)
+    pos = torch.searchsorted(c, k.expand(c.shape[:-1] + (K,)).contiguous(),
+                             side="left").to(torch.int32)
+    pos = torch.where(k <= cnt[..., None], pos, fill)
     return pos, cnt
 
 
@@ -206,15 +212,17 @@ def compact_dense_i(qv, ll_n: int):
     |q| > 127, the plane size past them, vals (K,) int32 their values,
     nbig () int32: the values the layout cannot carry, past the LL's
     |q| > 127 and beyond K in the LL; nonzero means overflow), K =
-    min(256, ll_n) (dsv1_tpu/ops/hzcc.py compact_dense_i)."""
-    n = qv.shape[0]
+    min(256, ll_n) (dsv1_tpu/ops/hzcc.py compact_dense_i); planes (..., n)
+    give each output with the same leading dimensions."""
+    n = qv.shape[-1]
     q8 = qv.clamp(-128, 127).to(torch.int8)
-    ll = qv[:ll_n]
+    ll = qv[..., :ll_n]
     K = min(256, ll_n)
     pos, cnt = _first_positions(ll.abs() > 127, K, n)
-    vals = torch.where(pos < ll_n, ll[pos.clamp(0, ll_n - 1)], 0) \
+    vals = torch.where(pos < ll_n, ll.gather(-1, pos.clamp(0, ll_n - 1)
+                                             .to(torch.int64)), 0) \
         .to(torch.int32)
-    nbig = (qv[ll_n:].abs() > 127).sum(dtype=torch.int32) \
+    nbig = (qv[..., ll_n:].abs() > 127).sum(-1, dtype=torch.int32) \
         + (cnt - K).clamp(min=0)
     return q8, pos, vals, nbig
 
@@ -240,17 +248,20 @@ def compact_sparse_p(qv, cap_div: int = 256):
     each, u16 bits in an int16 tensor, vals (K,) int16, cnt () int32 the
     plane's nonzero count, ovf () bool: more than K nonzeros, a run over
     0xFFFE or a value past int16). Entries past cnt hold what the JAX
-    package's compact_sparse_p gives them, element for element."""
-    n = qv.shape[0]
+    package's compact_sparse_p gives them, element for element. Planes
+    (..., n) give each output with the same leading dimensions."""
+    n = qv.shape[-1]
     K = min(n, max(256, n // cap_div))
     pos, cnt = _first_positions(qv != 0, K, n)
-    vals = torch.where(pos < n, qv[pos.clamp(0, n - 1)], 0)
-    prev = torch.cat([pos.new_full((1,), -1), pos[:-1]])
+    vals = torch.where(pos < n, qv.gather(-1, pos.clamp(0, n - 1)
+                                          .to(torch.int64)), 0)
+    prev = torch.cat([pos.new_full(pos.shape[:-1] + (1,), -1),
+                      pos[..., :-1]], dim=-1)
     runs = pos - prev - 1
-    valid = torch.arange(K, device=qv.device) < cnt
+    valid = torch.arange(K, device=qv.device) < cnt[..., None]
     ovf = ((cnt > K)
-           | (torch.where(valid, runs, 0).max() > 0xFFFE)
-           | (torch.where(valid, vals.abs(), 0).max() > 0x7FFF))
+           | (torch.where(valid, runs, 0).amax(-1) > 0xFFFE)
+           | (torch.where(valid, vals.abs(), 0).amax(-1) > 0x7FFF))
     return _wrap_i16(runs), _wrap_i16(vals), cnt, ovf
 
 

@@ -17,8 +17,8 @@ the reference's single allocation does), 0 outside [0, n), and the
 luma diagonal's horizontal intermediate is itself 0 outside [0, n).
 
 `predict_frame` takes the plain version for CPU tensors and launches
-the kernel (csrc/mc.cu, one launch for the three planes) for CUDA
-tensors; there is no fallback.
+the kernel (csrc/mc.cu, one launch for the three planes of a batch of
+frames) for CUDA tensors; there is no fallback.
 """
 
 import ctypes
@@ -165,43 +165,62 @@ def _plane_plain(img, g: MCPlane, luma: bool, nbh: int, nbv: int, modes,
         .reshape(nbv * BH, nbh * BW)[:g.h, :g.w]
 
 
+def _batched(img, fields, nbh: int, nbv: int):
+    """(images (C, n), fields (C, nbh * nbv) each) of a frame (n,) or a
+    batch (C, n), and whether a batch was given."""
+    batch = img.dim() == 2
+    imgs = img if batch else img[None]
+    f = [x.reshape(imgs.shape[0], -1) for x in fields]
+    if any(x.shape[1] != nbh * nbv for x in f):
+        raise ValueError("per-block field has the wrong size")
+    return imgs, f, batch
+
+
 def predict_frame_plain(img, layout: FrameLayout, blk_w: int, blk_h: int,
                         nbh: int, nbv: int, modes, mvx, mvy, submask):
-    """The plain version of predict_frame."""
+    """The plain version of predict_frame, frame by frame."""
     planes, size = frame_geometry(layout, blk_w, blk_h)
-    f = [x.reshape(-1).to(torch.int32) for x in (modes, mvx, mvy, submask)]
-    out = torch.empty(size, dtype=torch.uint8, device=img.device)
-    for c, g in enumerate(planes):
-        out[g.out_off:g.out_off + g.h * g.w] = _plane_plain(
-            img, g, c == 0, nbh, nbv, *f).reshape(-1)
-    return out
+    imgs, f, batch = _batched(img, (modes, mvx, mvy, submask), nbh, nbv)
+    out = torch.empty((imgs.shape[0], size), dtype=torch.uint8,
+                      device=img.device)
+    for z in range(imgs.shape[0]):
+        fz = [x[z].to(torch.int32) for x in f]
+        for c, g in enumerate(planes):
+            out[z, g.out_off:g.out_off + g.h * g.w] = _plane_plain(
+                imgs[z], g, c == 0, nbh, nbv, *fz).reshape(-1)
+    return out if batch else out[0]
 
 
 def predict_frame(img, layout: FrameLayout, blk_w: int, blk_h: int,
                   nbh: int, nbv: int, modes, mvx, mvy, submask):
     """The three planes' predictions back to back, (sum of h * w,) u8,
-    from the flat extended reference image and the per-block mode, MV
-    and submask fields (nbv * nbh each): the plain version on CPU
-    tensors, one launch of csrc/mc.cu on CUDA tensors."""
+    from the flat extended reference image (n,) and the per-block mode,
+    MV and submask fields (nbv * nbh each); for a batch of C frames,
+    images (C, n) and fields (C, ...) give (C, sum of h * w): the plain
+    version on CPU tensors, one launch of csrc/mc.cu for the whole batch
+    on CUDA tensors."""
     if not img.is_cuda:
         return predict_frame_plain(img, layout, blk_w, blk_h, nbh, nbv,
                                    modes, mvx, mvy, submask)
     from ..kernels.build import LAUNCHES, check, lib, stream_ptr
-    if img.dtype != torch.uint8 or img.dim() != 1 \
-            or not img.is_contiguous():
-        raise ValueError("img must be a contiguous 1-D uint8 tensor")
+    if img.dtype != torch.uint8 or img.dim() not in (1, 2) \
+            or img.stride(-1) != 1:
+        raise ValueError("img must be a uint8 tensor (n,) or (C, n) with "
+                         "contiguous rows")
     _, size = frame_geometry(layout, blk_w, blk_h)
     dev = img.device
-    f = [x.to(device=dev, dtype=torch.int32).contiguous().reshape(-1)
-         for x in (modes, mvx, mvy, submask)]
-    if any(x.numel() != nbh * nbv for x in f):
-        raise ValueError("per-block field has the wrong size")
-    out = torch.empty(size, dtype=torch.uint8, device=dev)
-    err = lib().dsv1_mc_frame(img.data_ptr(), img.shape[0],
+    imgs, f, batch = _batched(img, (modes, mvx, mvy, submask), nbh, nbv)
+    f = [x.to(device=dev, dtype=torch.int32) for x in f]
+    if any(x.stride() != f[0].stride() or x.stride(1) != 1 for x in f):
+        f = [x.contiguous() for x in f]
+    C = imgs.shape[0]
+    out = torch.empty((C, size), dtype=torch.uint8, device=dev)
+    err = lib().dsv1_mc_frame(imgs.data_ptr(), imgs.shape[1], imgs.stride(0),
                               _geo_array(layout, blk_w, blk_h), nbh, nbv,
                               f[0].data_ptr(), f[1].data_ptr(),
                               f[2].data_ptr(), f[3].data_ptr(),
-                              out.data_ptr(), stream_ptr(img))
+                              f[0].stride(0), out.data_ptr(), size, C,
+                              stream_ptr(img))
     check(err, "dsv1_mc_frame")
     LAUNCHES["mc"] += 1
-    return out
+    return out if batch else out[0]

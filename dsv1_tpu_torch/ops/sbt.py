@@ -9,9 +9,11 @@ The forward transform carries the active LL region between levels;
 each Haar level writes its LH/HL/HH bands straight into their
 rectangles of the assembled coefficient array, and the last LL goes
 into the top-left corner. `haar_fwd_pyramid` runs all the Haar levels of
-a plane: on CUDA tensors in one C call of the kernels csrc/sbt.cu (they
-replace the Pallas `kern` of tools/bench_haar.py:169), on CPU tensors
-by its plain version, a loop of `_haar_fwd_region`. The inverse reads
+a plane, or of a batch of planes: on CUDA tensors in one C call of the
+kernels csrc/sbt.cu (they replace the Pallas `kern` of
+tools/bench_haar.py:169), on CPU tensors by its plain version, a loop of
+`_haar_fwd_region`. Every function takes any leading batch dimensions;
+the last two are the plane's rows and columns. The inverse reads
 each level's band pieces from the original array. Odd dimensions are
 edge-replicated (forward) and zero-padded (inverse). `is_p` is a python bool here: the caller knows
 each frame's type. B4T is defined for even dimensions only, as in the
@@ -57,11 +59,11 @@ def _scale_inv(v):
 
 def _pad_even(r):
     """Edge-replicate to even dims (the C oddw/oddh branches)."""
-    hs, ws = r.shape
+    hs, ws = r.shape[-2:]
     if ws & 1:
-        r = torch.cat([r, r[:, -1:]], dim=1)
+        r = torch.cat([r, r[..., -1:]], dim=-1)
     if hs & 1:
-        r = torch.cat([r, r[-1:, :]], dim=0)
+        r = torch.cat([r, r[..., -1:, :]], dim=-2)
     return r
 
 
@@ -75,27 +77,27 @@ def _quad_dims(W: int, H: int, lvl: int):
 def _haar_fwd_region(r, scale_ll: bool):
     """C.3.1.2 Haar forward on the carried region: returns LL (ch,cw),
     LH (ch,fw), HL (fh,cw), HH (fh,fw)."""
-    hs, ws = r.shape
+    hs, ws = r.shape[-2:]
     fw, fh = ws // 2, hs // 2
     rp = _pad_even(r)
-    x0 = rp[0::2, 0::2]
-    x1 = rp[0::2, 1::2]
-    x2 = rp[1::2, 0::2]
-    x3 = rp[1::2, 1::2]
+    x0 = rp[..., 0::2, 0::2]
+    x1 = rp[..., 0::2, 1::2]
+    x2 = rp[..., 1::2, 0::2]
+    x3 = rp[..., 1::2, 1::2]
     LL = x0 + x1 + x2 + x3
     LH = x0 - x1 + x2 - x3
     HL = x0 + x1 - x2 - x3
     HH = x0 - x1 - x2 + x3
     if scale_ll:
         LL = _scale_fwd(LL)
-    return LL, LH[:, :fw], HL[:fh, :], HH[:fh, :fw]
+    return LL, LH[..., :fw], HL[..., :fh, :], HH[..., :fh, :fw]
 
 
 def _interleave2x2(a00, a01, a10, a11):
-    ch, cw = a00.shape
-    ev = torch.stack([a00, a01], dim=2).reshape(ch, 2 * cw)
-    od = torch.stack([a10, a11], dim=2).reshape(ch, 2 * cw)
-    return torch.stack([ev, od], dim=1).reshape(2 * ch, 2 * cw)
+    lead, (ch, cw) = a00.shape[:-2], a00.shape[-2:]
+    ev = torch.stack([a00, a01], dim=-1).reshape(lead + (ch, 2 * cw))
+    od = torch.stack([a10, a11], dim=-1).reshape(lead + (ch, 2 * cw))
+    return torch.stack([ev, od], dim=-2).reshape(lead + (2 * ch, 2 * cw))
 
 
 def _check_even(n: int):
@@ -105,51 +107,51 @@ def _check_even(n: int):
 
 def _b4t_fwd_rows(a):
     """C.3.2.1 forward B4T down the rows of a (even count)."""
-    _check_even(a.shape[0])
-    even, odd = a[0::2], a[1::2]
-    x0 = torch.cat([odd[:1], odd[:-1]], dim=0)
-    x3 = torch.cat([even[1:], odd[-1:]], dim=0)
+    _check_even(a.shape[-2])
+    even, odd = a[..., 0::2, :], a[..., 1::2, :]
+    x0 = torch.cat([odd[..., :1, :], odd[..., :-1, :]], dim=-2)
+    x3 = torch.cat([even[..., 1:, :], odd[..., -1:, :]], dim=-2)
     L = round2(3 * (even + odd) - x0 - x3)
     H = round2(x0 - 3 * even + 3 * odd - x3)
-    return torch.cat([L, H], dim=0)
+    return torch.cat([L, H], dim=-2)
 
 
 def _b4t_inv_rows(a):
     """C.3.2.2 inverse B4T down the rows of a (even count)."""
-    n = a.shape[0]
+    n = a.shape[-2]
     _check_even(n)
     m = n // 2
-    L, H = a[:m], a[m:]
-    Lp = torch.cat([L[:1], L[:-1]], dim=0)
-    Hp = torch.cat([H[:1], H[:-1]], dim=0)
-    Ln = torch.cat([L[1:], L[-1:]], dim=0)
-    Hn = torch.cat([H[1:], H[-1:]], dim=0)
+    L, H = a[..., :m, :], a[..., m:, :]
+    Lp = torch.cat([L[..., :1, :], L[..., :-1, :]], dim=-2)
+    Hp = torch.cat([H[..., :1, :], H[..., :-1, :]], dim=-2)
+    Ln = torch.cat([L[..., 1:, :], L[..., -1:, :]], dim=-2)
+    Hn = torch.cat([H[..., 1:, :], H[..., -1:, :]], dim=-2)
     evens = round8(Lp + 3 * L + Hp - 3 * H)
     odds = round8(3 * L + Ln + 3 * H - Hn)
-    return torch.stack([evens, odds], dim=1).reshape(n, a.shape[1])
+    return torch.stack([evens, odds], dim=-2).reshape(a.shape)
 
 
 def _b4t_fwd_2d(a):
     """fwd_b4t_2d (sbt.c:240-251): rows then columns."""
-    return _b4t_fwd_rows(_b4t_fwd_rows(a.T).T)
+    return _b4t_fwd_rows(_b4t_fwd_rows(a.mT).mT)
 
 
 def _b4t_inv_2d(a):
     """inv_b4t_2d (sbt.c:253-265): columns then rows."""
-    return _b4t_inv_rows(_b4t_inv_rows(a).T).T
+    return _b4t_inv_rows(_b4t_inv_rows(a).mT).mT
 
 
 def _haar_fwd_pyramid_plain(cur, out, first: int, lvls: int):
     """The plain version of haar_fwd_pyramid: one `_haar_fwd_region` per
     level."""
     for i in range(first, lvls + 1):
-        hs, ws = cur.shape
+        hs, ws = cur.shape[-2:]
         ch, cw, fh, fw = (hs + 1) // 2, (ws + 1) // 2, hs // 2, ws // 2
         cur, LH, HL, HH = _haar_fwd_region(cur, scale_ll=i > 1)
-        out[:ch, cw:cw + fw] = LH
-        out[ch:ch + fh, :cw] = HL
-        out[ch:ch + fh, cw:cw + fw] = HH
-    out[:cur.shape[0], :cur.shape[1]] = cur
+        out[..., :ch, cw:cw + fw] = LH
+        out[..., ch:ch + fh, :cw] = HL
+        out[..., ch:ch + fh, cw:cw + fw] = HH
+    out[..., :cur.shape[-2], :cur.shape[-1]] = cur
 
 
 def haar_fwd_pyramid(cur, out, first: int, lvls: int):
@@ -157,36 +159,46 @@ def haar_fwd_pyramid(cur, out, first: int, lvls: int):
     (level `first` reads cur; LL scaled above level 1): every level's
     LH/HL/HH into its rectangles of the assembled coefficient array
     `out`, the last LL into its top-left corner; with no level to run,
-    cur itself. cur must not overlap out. CUDA tensors take one C call
-    of csrc/sbt.cu (a tile stage and, past 6 levels, a coarse stage: 1
-    or 2 launches); CPU tensors the plain version."""
-    hs, ws = cur.shape
+    cur itself. cur must not overlap out. A batch of planes is cur
+    (C, hs, ws) and out (C, H, W). CUDA tensors take one C call of
+    csrc/sbt.cu for the whole batch (a tile stage and, past 6 levels, a
+    coarse stage: 1 or 2 launches); CPU tensors the plain version."""
+    hs, ws = cur.shape[-2:]
     if first > lvls:
-        out[:hs, :ws] = cur
+        out[..., :hs, :ws] = cur
         return
     if not cur.is_cuda:
         _haar_fwd_pyramid_plain(cur, out, first, lvls)
         return
     from ..kernels.build import LAUNCHES, check, lib, stream_ptr
+    if cur.dim() != out.dim() or cur.dim() not in (2, 3) \
+            or cur.shape[:-2] != out.shape[:-2]:
+        raise ValueError("haar_fwd_pyramid takes a plane (h, w) or a batch "
+                         "(C, h, w), cur and out alike")
     for t in (cur, out):
-        if t.dtype != torch.int32 or t.dim() != 2 or t.stride(1) != 1:
-            raise ValueError("haar_fwd_pyramid takes 2-D int32 tensors "
-                             "with contiguous rows")
-    if out.device != cur.device or out.shape[0] < hs or out.shape[1] < ws:
+        if t.dtype != torch.int32 or t.stride(-1) != 1:
+            raise ValueError("haar_fwd_pyramid takes int32 tensors with "
+                             "contiguous rows")
+    if out.device != cur.device or out.shape[-2] < hs \
+            or out.shape[-1] < ws:
         raise ValueError("out must hold the region on the same device")
+    C = cur.shape[0] if cur.dim() == 3 else 1
+    sb, ob = ((cur.stride(0), out.stride(0)) if cur.dim() == 3 else (0, 0))
     coarse = lvls - first + 1 > HAAR_TILE_LEVELS
-    mid = torch.empty(-(-hs // HAAR_TILE) * -(-ws // HAAR_TILE) if coarse
-                      else 0, dtype=torch.int32, device=cur.device)
-    err = lib().dsv1_haar_pyramid(cur.data_ptr(), cur.stride(0), hs, ws,
-                                  first, lvls, out.data_ptr(), out.stride(0),
-                                  mid.data_ptr(), stream_ptr(cur))
+    mid = torch.empty(C * -(-hs // HAAR_TILE) * -(-ws // HAAR_TILE)
+                      if coarse else 0, dtype=torch.int32,
+                      device=cur.device)
+    err = lib().dsv1_haar_pyramid(cur.data_ptr(), cur.stride(-2), sb, hs,
+                                  ws, first, lvls, out.data_ptr(),
+                                  out.stride(-2), ob, C, mid.data_ptr(),
+                                  stream_ptr(cur))
     check(err, "dsv1_haar_pyramid")
     LAUNCHES["haar_fwd"] += 1 + coarse
 
 
 def fwd_sbt(coefs, is_p: bool):
-    """dsv_fwd_sbt (sbt.c:630-651) on centered int32 coefs (H, W)."""
-    H, W = coefs.shape
+    """dsv_fwd_sbt (sbt.c:630-651) on centered int32 coefs (..., H, W)."""
+    H, W = coefs.shape[-2:]
     lvls = nlevels(W, H)
     cur = coefs.to(torch.int32)
     first = 1
@@ -194,7 +206,7 @@ def fwd_sbt(coefs, is_p: bool):
         # B4T level 1 gives all four bands in place; the Haar levels read
         # a copy of its LL, since they overwrite that corner
         out = _b4t_fwd_2d(cur)
-        cur = out[:(H + 1) // 2, :(W + 1) // 2].clone()
+        cur = out[..., :(H + 1) // 2, :(W + 1) // 2].clone()
         first = 2
     else:
         out = torch.empty_like(cur)
@@ -231,21 +243,22 @@ def _haar_inv_region(cur, lh_col, hl_row, LH, HL, HH, ws: int, hs: int,
                      scale: bool, filtered: bool, hqp: int):
     """C.3.1.3/C.3.1.4 Haar inverse, one level (sbt.c:351-574), on the
     carried LL region (see the JAX twin for the neighbour reads)."""
-    ch, cw = cur.shape
+    ch, cw = cur.shape[-2:]
     fw, fh = ws // 2, hs // 2
     inv_scale = _scale_inv if scale else (lambda v: v)
     LL = inv_scale(cur)
     if filtered:
         dev = cur.device
-        lp = inv_scale(torch.cat([cur[:, :1], cur[:, :cw - 1]], dim=1))
-        ln = inv_scale(torch.cat([cur[:, 1:], lh_col], dim=1))
+        lp = inv_scale(torch.cat([cur[..., :1], cur[..., :cw - 1]], dim=-1))
+        ln = inv_scale(torch.cat([cur[..., 1:], lh_col], dim=-1))
         col = torch.arange(cw, device=dev)
         row = torch.arange(ch, device=dev)
         in_x = ((col >= 1) & (col <= fw - 1))[None, :] \
             & (row <= fh - 1)[:, None]
         LH = _nudge(LL, lp, ln, LH, in_x, hqp)
-        up = inv_scale(torch.cat([cur[:1, :], cur[:ch - 1, :]], dim=0))
-        dn = inv_scale(torch.cat([cur[1:, :], hl_row], dim=0))
+        up = inv_scale(torch.cat([cur[..., :1, :], cur[..., :ch - 1, :]],
+                                 dim=-2))
+        dn = inv_scale(torch.cat([cur[..., 1:, :], hl_row], dim=-2))
         in_y = ((row >= 1) & (row <= fh - 1))[:, None] \
             & (col <= fw - 1)[None, :]
         HL = _nudge(LL, up, dn, HL, in_y, hqp)
@@ -253,33 +266,33 @@ def _haar_inv_region(cur, lh_col, hl_row, LH, HL, HH, ws: int, hs: int,
     a01 = trunc_div(LL - LH + HL - HH, 4)
     a10 = trunc_div(LL + LH - HL - HH, 4)
     a11 = trunc_div(LL - LH - HL + HH, 4)
-    return _interleave2x2(a00, a01, a10, a11)[:hs, :ws]
+    return _interleave2x2(a00, a01, a10, a11)[..., :hs, :ws]
 
 
 def inv_sbt(coefs, q: int, is_p: bool, is_luma: bool):
-    """dsv_inv_sbt (sbt.c:653-714) on int32 coefs (H, W)."""
-    H, W = coefs.shape
+    """dsv_inv_sbt (sbt.c:653-714) on int32 coefs (..., H, W)."""
+    H, W = coefs.shape[-2:]
     lvls = nlevels(W, H)
     a = coefs.to(torch.int32)
     _, _, cwl, chl, _, _ = _quad_dims(W, H, lvls)
-    cur = a[:chl, :cwl]
+    cur = a[..., :chl, :cwl]
     for i in range(lvls, 0, -1):
         ws, hs, cw, ch, fw, fh = _quad_dims(W, H, i)
         hqp = _hqp_for_level(q, is_p, i) if is_luma else 0
-        LHr = a[0:ch, cw:cw + fw]
+        LHr = a[..., 0:ch, cw:cw + fw]
         LH = F.pad(LHr, (0, cw - fw))
-        HL = F.pad(a[ch:ch + fh, 0:cw], (0, 0, 0, ch - fh))
-        HH = F.pad(a[ch:ch + fh, cw:cw + fw], (0, cw - fw, 0, ch - fh))
-        lh_col = a[0:ch, cw:cw + 1]
-        hl_row = a[ch:ch + 1, 0:cw]
+        HL = F.pad(a[..., ch:ch + fh, 0:cw], (0, 0, 0, ch - fh))
+        HH = F.pad(a[..., ch:ch + fh, cw:cw + fw], (0, cw - fw, 0, ch - fh))
+        lh_col = a[..., 0:ch, cw:cw + 1]
+        hl_row = a[..., ch:ch + 1, 0:cw]
         if i > 1 or is_p:
             cur = _haar_inv_region(cur, lh_col, hl_row, LH, HL, HH, ws, hs,
                                    scale=i > 1, filtered=is_luma, hqp=hqp)
         else:
             # B4T reads the raw bands: the level-1 in-place state is the
             # reconstructed LL corner + the original band rows
-            full = torch.cat([torch.cat([cur, LHr], dim=1), a[ch:hs, 0:ws]],
-                             dim=0)
+            full = torch.cat([torch.cat([cur, LHr], dim=-1),
+                              a[..., ch:hs, 0:ws]], dim=-2)
             cur = _b4t_inv_2d(full)
     return cur.contiguous()
 

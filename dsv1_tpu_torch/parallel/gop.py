@@ -2,54 +2,62 @@
 the single-device paths of dsv1_tpu/parallel/gop.py).
 
 A closed GOP's frames depend on each other only through the recon chain
-and the stability accumulators (dsv_encoder.c:639-674). Everything that
-depends only on the input frames — pyramids, HME over every P-frame pair
-at once, scene-change and forced-intra verdicts — runs first, batched
-over the GOP (`GopEncoder.motion`). The host reads the has_ref verdicts
-(and, under ABR, the average lumas) once per GOP; then the recon chain
-runs frame by frame on the device. Each frame's quantized planes are
-compacted there (ops/hzcc.py: the I frame as dense int8 plus the LL's
-large values, each P frame as a capped (run, value) list), and the host
-reads the GOP's compacted planes, DCs, stable blocks and motion fields
-in one copy (`GopOutput`) and packs the whole GOP in one native call
-(bits.pack_chunk). When a cap overflows, the host reads that GOP's dense
-planes, still on the device, and packs it picture by picture: the same
-bytes (`STATS["overflow_redos"]` counts these GOPs).
-GOPs are encoded one after another, so the stability accumulators,
-refresh counter and rate state carried out of one GOP are exactly the
-state the reference holds entering the next. Frames are read GOP by
-GOP: a long or large input is never held whole. At gop 0 (intra only)
-every frame is its own GOP with no HME and no recon, and frames go
-through in chunks (`_encode_intra`).
+and the stability accumulators (dsv_encoder.c:639-674). GOPs go through
+in chunks of C GOPs (`gops_per_chunk`: the JAX package's rule, up to 4
+CIF GOPs a chunk; one GOP at 1080p and above or under ABR). Everything
+that depends only on the input frames — pyramids, HME over every
+P-frame pair of the chunk at once, scene-change and forced-intra
+verdicts — runs first (`GopEncoder.motion`). The host reads the
+has_ref verdicts (and, under ABR, the average lumas) once per chunk.
+The stability accumulators, which depend only on the motion fields and
+the verdicts, then run over the chunk's frames in stream order
+(`GopEncoder.stab_chain`), so each GOP starts from its exact state with
+no redo. Then the recon chain runs frame index by frame index, the
+chunk's frames of one type at a time through one launch of each kernel
+(`GopEncoder.encode_chunk`: at most two core calls per frame index, the
+P frames and the forced-intra ones). The chunk's quantized planes are
+compacted on the device (ops/hzcc.py: each I frame as dense int8 plus
+the LL's large values, each P slot as a capped (run, value) list), and
+the host reads the chunk's compacted planes, DCs, stable blocks and
+motion fields in one copy (`ChunkOutput`) and packs the whole chunk in
+one native call (bits.pack_chunk). When a cap overflows, the host reads
+that chunk's dense planes, still on the device, and packs it picture by
+picture: the same bytes (`STATS["overflow_redos"]` counts these
+chunks). A short tail is padded to a full chunk by repeating its last
+frame, as in the JAX package; padded frames are encoded and dropped at
+pack time. Frames are read chunk by chunk: a long or large input is
+never held whole. At gop 0 (intra only) every frame is its own GOP with
+no HME and no recon, and frames go through in chunks (`_encode_intra`).
 
-Under ABR the reference's per-frame law (ops/rc.py) picks each frame's
-quality from the exact byte size of the picture before it, which
-ops/piclen.py computes on the device from the encode core's tensors (the
-JAX package's in-scan ABR, `_encode_abr_exact`). The core keeps its
-quant-derived scalars as host ints, so the host reads each frame's
-quality once (`.item()`): one device sync per frame.
+Under per-frame ABR (`_encode_abr_exact`, one GOP at a time) the
+reference's law (ops/rc.py) picks each frame's quality from the exact
+byte size of the picture before it, which ops/piclen.py computes on the
+device from the encode core's tensors (the JAX package's in-scan ABR).
+The core keeps its quant-derived scalars as host ints, so the host
+reads each frame's quality once (`.item()`): one device sync per frame.
 
-With abr_mode "gop" (`_encode_gop_abr`) each GOP has one quality, which
-a host model of the rate-quality curve (`_AbrState`) sets from the sizes
-of the GOPs packed before it. The JAX package pipelines its GOPs, so a
-GOP's quality is set when the GOP is dispatched, before the GOPs ahead
-of it are packed; the port replays that schedule on the host
-(`_pipelined`), and so gives the same bytes. The first GOP whose
-compacted planes fit their caps is packed as a trial, the model
-corrected, and the GOP encoded again from the state it started from.
+With abr_mode "gop" (`_encode_chunks` with a rate model) each chunk has
+one quality, which a host model of the rate-quality curve (`_AbrState`)
+sets from the sizes of the GOPs packed before it. The JAX package
+pipelines its chunks, so a chunk's quality is set when the chunk is
+dispatched, before the chunks ahead of it are packed; the port replays
+that schedule on the host (`_pipelined`), and so gives the same bytes.
+The first chunk whose compacted planes fit their caps is packed as a
+trial, the model corrected, and the chunk encoded again from the state
+it started from.
 
-Each GOP's phases run under `torch.profiler.record_function` spans
-(`gop.upload`, `gop.motion`, `gop.recon_chain`, `gop.pack`); each span
-ends on a host read or a host-only step, so its host time covers its
-device work. Inside the recon chain, `gop.rate_read` spans each ABR
-frame's law and quality read: its host time is the per-frame sync,
-mostly the wait for the previous frame's device work.
-tools/torch_profile.py reads them.
+Each chunk's phases run under `torch.profiler.record_function` spans
+(`gop.upload`, `gop.motion`, `gop.stability`, `gop.recon_chain`,
+`gop.pack`); each span ends on a host read or a host-only step, so its
+host time covers its device work (`gop.stability` queues device work
+that `gop.recon_chain`'s read waits for). Inside the recon chain,
+`gop.rate_read` spans each per-frame ABR frame's law and quality read:
+its host time is the per-frame sync, mostly the wait for the previous
+frame's device work. tools/torch_profile.py reads them.
 """
 
 import math
 import os
-from collections import defaultdict
 from functools import lru_cache
 from itertools import islice
 
@@ -59,7 +67,8 @@ from torch.profiler import record_function
 
 from .. import bits
 from ..constants import (FOURCC, GOP_INTRA, MAX_QP_BITS, MAX_QUALITY,
-                         RATE_CONTROL_CRF, VERSION_MINOR, quant_of_quality)
+                         RATE_CONTROL_CRF, VERSION_MINOR, div_round,
+                         quant_of_quality)
 from ..models.bitstream import (encode_eos_packet, encode_metadata_packet,
                                 set_link_offsets)
 from ..models.metadata import Metadata
@@ -78,79 +87,89 @@ from ..utils.blob import fetch, fetch_dense
 from ..utils.stats import STATS
 
 
-class GopOutput:
-    """One GOP's encoder output on the host, read from the device in one
-    copy: the compacted planes (`parts`, ops/hzcc.py layouts), the
-    per-frame quants and, when a compaction cap overflowed, the dense
-    planes. `pack` assembles the GOP's packets."""
+class ChunkOutput:
+    """A chunk's encoder output on the host (C GOPs of n frames), read
+    from the device in one copy: the compacted planes (`parts`,
+    ops/hzcc.py layouts, each with a leading GOP axis), the per-frame
+    quants and, when a compaction cap overflowed, the dense planes.
+    `pack` assembles the chunk's packets."""
 
     def __init__(self, enc, parts: dict, has_ref, quants, dense):
-        self.enc, self.parts, self.quants = enc, parts, quants
-        self.n = len(quants)
-        self.has_ref = (np.zeros(0, bool) if has_ref is None
-                        else np.asarray(has_ref, bool))
-        self.dense = dense     # (n, N) int32, or None
+        self.enc, self.parts = enc, parts
+        self.quants = np.asarray(quants, np.int32)        # (C, n)
+        self.C, self.n = self.quants.shape
+        self.has_ref = np.asarray(has_ref, bool).reshape(self.C, self.n - 1)
+        self.dense = dense     # (C, n, N) int32, or None
         self.overflow = dense is not None
 
     def _p_arrays(self):
-        """The P frames' fields as pack_chunk takes them, (1, n-1, ...)."""
+        """The P frames' fields as pack_chunk takes them, (C, n-1, ...)."""
         h = self.parts
         if self.n == 1:
-            return _no_p_arrays(1)
-        return ([h[f"p_runs{c}"].view(np.uint16)[None] for c in range(3)],
-                [h[f"p_vals{c}"][None] for c in range(3)],
-                [h["p_cnt"][:, c][None] for c in range(3)],
-                h["p_dc"][None], self.has_ref.astype(np.uint8)[None],
-                h["p_mode"][None], h["p_mvx"][None], h["p_mvy"][None],
-                h["p_submask"][None], h["p_stable"][None])
+            return _no_p_arrays(self.C)
+        return ([h[f"p_runs{c}"].view(np.uint16) for c in range(3)],
+                [h[f"p_vals{c}"] for c in range(3)],
+                [h["p_cnt"][..., c] for c in range(3)],
+                h["p_dc"], self.has_ref.astype(np.uint8), h["p_mode"],
+                h["p_mvx"], h["p_mvy"], h["p_submask"], h["p_stable"])
 
     def pack(self, meta_pkt: bytes, fnum0: int, prev_link: int,
-             n_real: int | None = None):
-        """(the GOP's metadata packet and its first n_real pictures as
-        bytes, the new prev_link); fnum0 is the GOP's first frame
-        number."""
-        e, h = self.enc, self.parts
-        n_real = self.n if n_real is None else n_real
+             n_real: int):
+        """(each GOP holding a real frame: its metadata packet and its real
+        pictures, as bytes; the new prev_link). fnum0 is the chunk's
+        first frame number, n_real its real frames (the rest pad its
+        tail)."""
+        e, h, n = self.enc, self.parts, self.n
+        ngops = -(-n_real // n)
         if not self.overflow:
             return bits.pack_chunk(
                 FOURCC, VERSION_MINOR, e.blk_w, e.blk_h, e.nbh, e.nbv,
-                np.asarray(self.quants, np.int32)[None], MAX_QP_BITS,
-                meta_pkt, 1, self.n, 0, 1, n_real, fnum0, 1,
-                [h[f"i_q8{c}"][None] for c in range(3)],
-                [h[f"i_pos{c}"][None] for c in range(3)],
-                [h[f"i_vals{c}"][None] for c in range(3)],
-                h["i_dc"][None], h["i_stable"][None], *self._p_arrays(),
-                prev_link)
-        out = bytearray(meta_pkt)
-        for i in range(n_real):
-            is_p = bool(self.has_ref[i - 1]) if i else False
-            mv = ({k: h[f"p_{k}"][i - 1] for k in MOTION_KEYS} if is_p
-                  else None)
-            stable = h["p_stable"][i - 1] if i else h["i_stable"]
-            dc = h["p_dc"][i - 1] if i else h["i_dc"]
-            pic = pack_picture(fnum0 + i, e.blk_w, e.blk_h, stable, is_p,
-                               True, mv, self.quants[i],
-                               split_row(self.dense[i], e.plane_sizes), dc,
-                               e.nbh, e.nbv)
-            set_link_offsets(pic, prev_link, len(pic))
-            prev_link = len(pic)
-            out.extend(pic)
+                self.quants, MAX_QP_BITS, meta_pkt, self.C, n, 0, ngops,
+                n_real, fnum0, 1, [h[f"i_q8{c}"] for c in range(3)],
+                [h[f"i_pos{c}"] for c in range(3)],
+                [h[f"i_vals{c}"] for c in range(3)], h["i_dc"],
+                h["i_stable"], *self._p_arrays(), prev_link)
+        out = bytearray()
+        for g in range(ngops):
+            out.extend(meta_pkt)
+            for i in range(min(n, n_real - g * n)):
+                is_p = bool(self.has_ref[g, i - 1]) if i else False
+                mv = ({k: h[f"p_{k}"][g, i - 1] for k in MOTION_KEYS}
+                      if is_p else None)
+                stable = h["p_stable"][g, i - 1] if i else h["i_stable"][g]
+                dc = h["p_dc"][g, i - 1] if i else h["i_dc"][g]
+                pic = pack_picture(fnum0 + g * n + i, e.blk_w, e.blk_h,
+                                   stable, is_p, True, mv,
+                                   int(self.quants[g, i]),
+                                   split_row(self.dense[g, i],
+                                             e.plane_sizes), dc, e.nbh,
+                                   e.nbv)
+                set_link_offsets(pic, prev_link, len(pic))
+                prev_link = len(pic)
+                out.extend(pic)
         return bytes(out), prev_link
 
 
-def picture_sizes(pkt: bytes, meta_len: int) -> list:
-    """Byte sizes of the pictures of one packed GOP (its metadata packet
-    first), read from each picture's next-link field at byte 10."""
-    sizes, off = [], meta_len
-    while off < len(pkt):
-        sizes.append(int.from_bytes(pkt[off + 10:off + 14], "big"))
-        off += sizes[-1]
-    return sizes
+def gop_bytes(pkt: bytes, meta_len: int, n_real: int, G: int) -> list:
+    """(bytes, frames) of each GOP of a packed chunk (each GOP's metadata
+    packet first, then its pictures), from each picture's next-link
+    field at byte 10."""
+    out, off = [], 0
+    for g in range(-(-n_real // G)):
+        off += meta_len
+        nf, acc = min(G, n_real - g * G), 0
+        for _ in range(nf):
+            plen = int.from_bytes(pkt[off + 10:off + 14], "big")
+            acc += plen
+            off += plen
+        out.append((acc, nf))
+    return out
 
 
 class GopEncoder:
-    """One closed GOP at a time on one device: `motion()` for the
-    input-only work, `encode_gop()` for the recon chain."""
+    """Closed GOPs on one device, a chunk of C GOPs at a time: `motion()`
+    for the input-only work, `stab_chain()` for the stability
+    accumulators, `encode_chunk()` for the recon chain."""
 
     def __init__(self, subsamp: int, w: int, h: int, G: int, quality: int,
                  do_scd: bool = True, scd_delta: int = 4,
@@ -180,110 +199,213 @@ class GopEncoder:
                                             self.blk_h, self.nbh, self.nbv)
 
     def motion(self, packed, calls: list | None = None):
-        """packed: (n, fsz) u8 planar frames of one GOP on the device.
-        Returns (images per pyramid level (n, flat), average luma (n,),
-        motion dict over the n-1 P slots, has_ref (n-1,) bool). `calls`
-        collects the HME kernels' arguments (ops/hme.py hme_batch)."""
-        y, u, v = fr.split_packed_planes(packed, self.subsamp, self.w,
-                                         self.h)
+        """packed: (n, fsz) u8 planar frames of one GOP, or (C, n, fsz) of
+        a chunk of C GOPs, on the device. Returns (images per pyramid
+        level (C * n, flat), average luma ((n,) or (C, n)), motion dict
+        over the C * (n-1) P slots, GOP by GOP, has_ref ((n-1,) or
+        (C, n-1)) bool). One `hme_batch` call runs every P slot of the
+        chunk; its pairs never join two GOPs (each kernel reads only its
+        own pair's planes and, for the candidates, its own pair's field
+        of the level above, csrc/hme.cu parent_cand). `calls` collects
+        the HME kernels' arguments (ops/hme.py hme_batch)."""
+        one = packed.dim() == 2
+        chunk = packed[None] if one else packed
+        C, n = chunk.shape[:2]
+        y, u, v = fr.split_packed_planes(chunk.reshape(C * n, -1),
+                                         self.subsamp, self.w, self.h)
         imgs, al = self.prep((y, u, v))
-        if packed.shape[0] == 1:
-            return imgs, al, None, None
-        STATS["hme_calls_wide" if self.effort else "hme_calls"] += 1
-        mv = hme_batch([a[1:] for a in imgs], [a[:-1] for a in imgs],
-                       self.layouts, self.blk_w, self.blk_h, self.nbh,
-                       self.nbv, self.subsamp, self.levels, calls,
-                       self.effort)
-        has_ref = mv["intra_pct"] <= self.intra_thresh
-        if self.do_scd:
-            has_ref &= (al[1:] - al[:-1]).abs() <= self.scd_delta
+        al = al.reshape(C, n)
+        mv = has_ref = None
+        if n > 1:
+            STATS["hme_calls_wide" if self.effort else "hme_calls"] += 1
+            if C == 1:
+                src, ref = [a[1:] for a in imgs], [a[:-1] for a in imgs]
+            else:
+                src, ref = ([a.view(C, n, -1)[:, lo:hi].reshape(
+                    C * (n - 1), -1) for a in imgs]
+                    for lo, hi in ((1, n), (0, n - 1)))
+            mv = hme_batch(src, ref, self.layouts, self.blk_w, self.blk_h,
+                           self.nbh, self.nbv, self.subsamp, self.levels,
+                           calls, self.effort)
+            has_ref = (mv["intra_pct"] <= self.intra_thresh).reshape(C,
+                                                                     n - 1)
+            if self.do_scd:
+                has_ref &= (al[:, 1:] - al[:, :-1]).abs() <= self.scd_delta
+        if one:
+            return imgs, al[0], mv, None if has_ref is None else has_ref[0]
         return imgs, al, mv, has_ref
 
-    def encode_frame(self, st: EncoderState, img0, is_p: bool, mv,
-                     quant: int):
-        """Stability update + encode core for one frame; advances st.
-        Returns (qvals per plane, dcs per plane, stable_blocks)."""
-        st.stability, st.refresh_ctr, stable_blocks = _stable_update(
-            st.stability, st.refresh_ctr, is_p, mv, self.stable_refresh)
-        if is_p:
-            margs = tuple(mv[k] for k in MOTION_KEYS)
-        else:
-            margs = (None,) * 4
-        qvals, dcs, recon = self.core(img0, st.ref_recon, is_p, quant,
-                                      stable_blocks, *margs)
-        STATS["core_p" if is_p else "core_i"] += 1
-        st.ref_recon = recon
-        st.refresh_ctr += int(is_p)
-        return qvals, dcs, stable_blocks
+    def stab_chain(self, st: EncoderState, mv, has_ref, n_real: int):
+        """The stability accumulators over a chunk's frames in stream
+        order (encode_stable_blocks, dsv_encoder.c:329-400, and the
+        refresh increment): the stable blocks (C, n, nblk) u8 on the
+        device, each GOP started from its exact state; advances st to the
+        state after the chunk's last real frame (of n_real).
 
-    def encode_gop(self, st: EncoderState, imgs0, mv, has_ref, law=None,
-                   forced_i: bool = False, quants=None) -> GopOutput:
-        """The GOP's recon chain from state st; frame 0 is intra. Each
-        frame's quant is the CRF quant, or quants (I, P) (GOP-granular
-        ABR), or, with `law` (ops/rc.py make_abr_law), comes from the
-        rate state st.rc, which the frame's exact packed size then
-        updates; forced_i says the I frame is a scene cut. Returns the
-        GOP's host output, read in one copy (two on overflow)."""
-        n = imgs0.shape[0]
-        parts, frame_q, dense = {}, [], []
-        p_parts = defaultdict(list)   # per key, the P frames' tensors
+        The chain depends only on the motion fields and the has_ref
+        verdicts (host), never on the recon chain, so it runs before it.
+        The counter is host arithmetic; a GOP whose I frame finds it at 0
+        or at the refresh period starts from zeroed accumulators, so
+        those GOPs run batched from zero. A GOP that finds it in between
+        carries its predecessor's accumulators (the JAX package encodes
+        it from zero first and redoes it, `_StabReplay`); its run starts
+        from that state once the GOPs before it have run
+        (`STATS["stab_carried"]` counts these GOPs). At gop 1 the chain
+        never moves (nor, as in the JAX package, does st)."""
+        C, n = has_ref.shape[0], has_ref.shape[1] + 1
+        nblk = self.nbh * self.nbv
+        dev = st.stability.device
+        if self.G == 1:
+            return torch.ones((C, 1, nblk), dtype=torch.uint8, device=dev)
+        sr = self.stable_refresh
+        hr = np.asarray(has_ref, bool)
+        entry, ctr = [], st.refresh_ctr
+        for g in range(C):
+            entry.append(ctr)
+            for i in range(n):
+                ctr = 0 if ctr >= sr else ctr
+                ctr += int(i > 0 and hr[g, i - 1])
+        ngops = -(-n_real // n)
+        carried = [g < ngops and 0 < c < sr for g, c in enumerate(entry)]
+        STATS["stab_carried"] += sum(carried)
+        fields = None if mv is None else {k: mv[k].reshape(C, n - 1, -1)
+                                          for k in MV_KEYS}
+        stable = torch.empty((C, n, nblk), dtype=torch.uint8, device=dev)
+        g_last, i_last = divmod(n_real - 1, n)
+        state = st.stability if carried[0] else None
+        a = 0
+        while a < C:
+            b = a + 1
+            while b < C and not carried[b]:
+                b += 1
+            stab = torch.zeros((b - a, nblk, 2), dtype=torch.int32,
+                               device=dev)
+            if state is not None:
+                stab[0] = state
+            ctrs = entry[a:b]
+            for i in range(n):
+                isp = [bool(i and hr[g, i - 1]) for g in range(a, b)]
+                mv_i = ({k: f[a:b, i - 1] for k, f in fields.items()}
+                        if any(isp) else None)
+                stab, ctrs, stable[a:b, i] = _stable_update(
+                    stab, ctrs, isp, mv_i, sr)
+                ctrs = [c + p for c, p in zip(ctrs, isp)]
+                if a <= g_last < b and i == i_last:
+                    st.stability = stab[g_last - a].clone()
+                    st.refresh_ctr = ctrs[g_last - a]
+            state = stab[-1]
+            a = b
+        return stable
+
+    def encode_chunk(self, st: EncoderState, imgs0, mv, has_ref, stable,
+                     quants=None, law=None,
+                     forced_i: bool = False) -> ChunkOutput:
+        """The recon chain of a chunk of C GOPs of n frames: imgs0 the
+        level-0 images (C * n, flat), has_ref (C, n-1) host, stable the
+        stable blocks (`stab_chain`). Frame index by frame index, the
+        GOPs' frames of each type go through the core together (at most
+        two core calls: the P frames, and the I frames of the GOPs whose
+        slot lost its reference), each from its own GOP's reference.
+        Each frame's quant is the CRF quant, or quants (I, P) (GOP-
+        granular ABR), or, with `law` (ops/rc.py make_abr_law; C = 1),
+        comes from the rate state st.rc, which the frame's exact packed
+        size then updates; forced_i says the I frame is a scene cut.
+        Compacts the chunk's planes on the device and returns its host
+        output, read in one copy (two on overflow)."""
+        C, n = stable.shape[:2]
+        dev = stable.device
+        hr = np.asarray(has_ref, bool).reshape(C, n - 1)
+        im = imgs0.view(C, n, -1)
+        fields = None if n == 1 else {k: mv[k].reshape(C, n - 1, -1)
+                                      for k in MOTION_KEYS}
+        qbuf = [torch.empty((C, n, t), dtype=torch.int32, device=dev)
+                for t in self.plane_sizes]
+        dcs = torch.empty((C, n, 3), dtype=torch.int32, device=dev)
+        frame_q = np.empty((C, n), np.int32)
+        ref = None
         for i in range(n):
-            is_p = bool(has_ref[i - 1]) if i else False
-            mv_i = ({k: mv[k][i - 1] for k in MV_KEYS} if i else None)
+            isp = hr[:, i - 1] if i else np.zeros(C, bool)
             quant = self.quant if quants is None else quants[1 if i else 0]
             if law is not None:
                 # a P slot that lost has_ref is a forced-intra frame
                 # (SCD / intra % promotion): the law boosts its quality
                 # (dsv_encoder.c:133-141)
+                is_p = bool(isp[0])
                 with record_function("gop.rate_read"):
                     q, st.rc = law[0](st.rc, is_p, forced_i if i == 0
                                       else not is_p)
                     quality = int(q.item())   # the one host read per frame
                 quant = crf_quant(quality)
-            qvals, dcs, stable = self.encode_frame(st, imgs0[i], is_p, mv_i,
-                                                   quant)
+            new_ref = None
+            for sub_p in (True, False):
+                sel = np.flatnonzero(isp == sub_p)
+                if sel.size == 0:
+                    continue
+                if sel.size == C:
+                    def take(t):
+                        return t
+                else:
+                    idx = torch.from_numpy(sel).to(dev, non_blocking=True)
+
+                    def take(t):
+                        return t.index_select(0, idx)
+                margs = (tuple(take(fields[k][:, i - 1])
+                               for k in MOTION_KEYS) if sub_p
+                         else (None,) * 4)
+                qv, dc, recon = self.core(take(im[:, i]),
+                                          take(ref) if sub_p else None,
+                                          sub_p, quant, take(stable[:, i]),
+                                          *margs)
+                dc = torch.stack(dc, -1).to(torch.int32)
+                if sel.size == C:
+                    for c in range(3):
+                        qbuf[c][:, i] = qv[c]
+                    dcs[:, i] = dc
+                    new_ref = recon
+                    continue
+                for c in range(3):
+                    qbuf[c][:, i].index_copy_(0, idx,
+                                              qv[c].to(torch.int32))
+                dcs[:, i].index_copy_(0, idx, dc)
+                if new_ref is None:
+                    new_ref = recon.new_empty((C, recon.shape[-1]))
+                new_ref.index_copy_(0, idx, recon)
             if law is not None:
                 plen = piclen.picture_len(
                     self.blk_w, self.blk_h, self.nbh, self.nbv, MAX_QP_BITS,
-                    stable, is_p, *(mv_i[k] if is_p else None
-                                    for k in MOTION_KEYS), qvals, dcs)
+                    stable[0, i], is_p, *(fields[k][0, i - 1] if is_p
+                                          else None for k in MOTION_KEYS),
+                    [q[0, i] for q in qbuf], dcs[0, i])
                 st.rc = law[1](st.rc, is_p, quality, plen)
-            dcs = torch.stack(dcs).to(torch.int32)
-            if i == 0:
-                for c, (qv, ll_n) in enumerate(zip(qvals, self.ll_sizes)):
-                    q8, pos, vals, nbig = hzcc.compact_dense_i(qv, ll_n)
-                    parts.update({f"i_q8{c}": q8, f"i_pos{c}": pos,
-                                  f"i_vals{c}": vals, f"i_nbig{c}": nbig})
-                parts.update(i_dc=dcs, i_stable=stable)
-            else:
-                comp = [hzcc.compact_sparse_p(qv, self.cap_div)
-                        for qv in qvals]
-                for c, (runs, vals, _cnt, _ovf) in enumerate(comp):
-                    p_parts[f"p_runs{c}"].append(runs)
-                    p_parts[f"p_vals{c}"].append(vals)
-                for key, j in (("p_cnt", 2), ("p_ovf", 3)):
-                    p_parts[key].append(torch.stack([r[j] for r in comp]))
-                p_parts["p_dc"].append(dcs)
-                p_parts["p_stable"].append(stable)
-            dense.append(qvals)
-            frame_q.append(quant)
-        parts.update({k: torch.stack(v) for k, v in p_parts.items()})
+            ref = new_ref
+            frame_q[:, i] = quant
+        parts = {"i_dc": dcs[:, 0], "i_stable": stable[:, 0]}
+        for c, (qv, ll_n) in enumerate(zip(qbuf, self.ll_sizes)):
+            q8, pos, vals, nbig = hzcc.compact_dense_i(qv[:, 0], ll_n)
+            parts.update({f"i_q8{c}": q8, f"i_pos{c}": pos,
+                          f"i_vals{c}": vals, f"i_nbig{c}": nbig})
         if n > 1:
+            comp = [hzcc.compact_sparse_p(qv[:, 1:], self.cap_div)
+                    for qv in qbuf]
+            for c, (runs, vals, _cnt, _ovf) in enumerate(comp):
+                parts.update({f"p_runs{c}": runs, f"p_vals{c}": vals})
+            parts["p_cnt"] = torch.stack([r[2] for r in comp], -1)
+            parts["p_ovf"] = torch.stack([r[3] for r in comp], -1)
+            parts.update(p_dc=dcs[:, 1:], p_stable=stable[:, 1:])
             for k, dt in (("mode", torch.uint8), ("mvx", torch.int16),
                           ("mvy", torch.int16), ("submask", torch.uint8)):
-                parts[f"p_{k}"] = mv[k].reshape(n - 1, -1).to(dt)
-        host = fetch(parts)   # one read per GOP
-        overflow = any(host[f"i_nbig{c}"] > 0 for c in range(3)) \
+                parts[f"p_{k}"] = fields[k].to(dt)
+        host = fetch(parts)   # one read per chunk
+        overflow = any(host[f"i_nbig{c}"].any() for c in range(3)) \
             or (n > 1 and bool(host["p_ovf"].any()))
         dense_h = None
         if overflow:
-            # a cap overflowed: the GOP's dense planes, still on the
+            # a cap overflowed: the chunk's dense planes, still on the
             # device, are packed instead (the JAX package's dense redo
             # computes the same planes)
             STATS["overflow_redos"] += 1
-            dense_h = fetch_dense(dense)
-        return GopOutput(self, host, None if n == 1 else has_ref, frame_q,
-                         dense_h)
+            dense_h = fetch({"dense": torch.cat(qbuf, -1)})["dense"]
+        return ChunkOutput(self, host, hr, frame_q, dense_h)
 
 
 @lru_cache(maxsize=8)
@@ -298,18 +420,24 @@ def build_gop_encoder(subsamp: int, w: int, h: int, G: int, quality: int,
                       cap_quality, effort)
 
 
-def _packed_gops(frames, G: int):
-    """(y, u, v) frames from any iterable -> (first frame number, (n, fsz)
-    u8 raw planar rows) per GOP (or chunk) of up to G frames, read as
-    they come."""
+def _chunks(frames, C: int, G: int, pad: bool = True):
+    """(first frame number, (C, G, fsz) u8 raw planar rows, real frames)
+    per chunk of C GOPs of G frames, read from any iterable as they
+    come. A short tail is padded by repeating its last real frame (the
+    JAX package's _ChunkReader); with pad False (C = 1) a short tail
+    comes as (1, n, fsz)."""
     it = iter(frames)
-    g0 = 0
+    f0 = 0
     while True:
-        gop = list(islice(it, G))
-        if not gop:
+        rows = [fr.np_pack_planes(f) for f in islice(it, C * G)]
+        if not rows:
             return
-        yield g0, np.stack([fr.np_pack_planes(f) for f in gop])
-        g0 += len(gop)
+        k = len(rows)
+        if pad:
+            rows += [rows[-1]] * (C * G - k)
+        yield f0, np.stack(rows).reshape(C if pad else 1, -1,
+                                         rows[0].size), k
+        f0 += k
 
 
 def _no_p_arrays(C: int):
@@ -322,7 +450,8 @@ def _no_p_arrays(C: int):
             np.zeros((C, 0, 1), np.uint8), np.zeros((C, 0, 1), np.uint8))
 
 
-def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev) -> bytes:
+def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev,
+                  fnum_base: int = 0):
     """gop 0 (the JAX package's build_intra_encoder and its gop-0 branch
     of encode_stream_gops): every frame an intra, non-reference picture
     after its own metadata packet; no HME, no recon, every block stable
@@ -331,7 +460,8 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev) -> bytes:
     planes are compacted on the device (dense int8 plus the LL's large
     values), the host reads a chunk in one copy and packs it in one
     native call; a chunk whose compaction overflowed is read dense and
-    packed picture by picture."""
+    packed picture by picture. Frame numbers start at fnum_base.
+    Returns (the stream without EOS, the last picture's length)."""
     w, h, subsamp = meta.width, meta.height, meta.subsamp
     blk_w, blk_h, nbh, nbv = block_geometry(w, h)
     quant = crf_quant(cfg.quality)
@@ -345,8 +475,8 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev) -> bytes:
     meta_pkt = bytes(encode_metadata_packet(meta))
     out = bytearray()
     prev_link = 0
-    for f0, rows in _packed_gops(frames, chunk):
-        k = rows.shape[0]
+    for f0, rows, k in _chunks(frames, 1, chunk, pad=False):
+        rows = rows[0]
         with record_function("gop.upload"):
             packed = torch.from_numpy(rows).to(dev)
         with record_function("gop.intra_core"):
@@ -355,7 +485,6 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev) -> bytes:
             for img in imgs[0]:
                 qvals, dc, _ = core(img, None, False, quant, stable,
                                     None, None, None, None)
-                STATS["core_i"] += 1
                 dense.append(qvals)
                 comp.append([hzcc.compact_dense_i(qv, ll)
                              for qv, ll in zip(qvals, ll_sizes)])
@@ -375,7 +504,8 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev) -> bytes:
             if not overflow:
                 pkt, prev_link = bits.pack_chunk(
                     FOURCC, VERSION_MINOR, blk_w, blk_h, nbh, nbv, quant,
-                    MAX_QP_BITS, meta_pkt, k, 1, f0, f0 + k, f0 + k, 0, 0,
+                    MAX_QP_BITS, meta_pkt, k, 1, f0, f0 + k, f0 + k,
+                    fnum_base, 0,
                     [host[f"q8{c}"] for c in range(3)],
                     [host[f"pos{c}"] for c in range(3)],
                     [host[f"vals{c}"] for c in range(3)], host["dc"],
@@ -385,15 +515,15 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev) -> bytes:
                 continue
             sizes = [t.n for t in tables]
             for i, row in enumerate(dense_h):
-                pic = pack_picture(f0 + i, blk_w, blk_h, stable_h, False,
-                                   False, None, quant, split_row(row, sizes),
-                                   host["dc"][i], nbh, nbv)
+                pic = pack_picture(fnum_base + f0 + i, blk_w, blk_h,
+                                   stable_h, False, False, None, quant,
+                                   split_row(row, sizes), host["dc"][i], nbh,
+                                   nbv)
                 set_link_offsets(pic, prev_link, len(pic))
                 prev_link = len(pic)
                 out.extend(meta_pkt)
                 out.extend(pic)
-    out.extend(encode_eos_packet(prev_link))
-    return bytes(out)
+    return out, prev_link
 
 
 def _env_int(name: str, default: int) -> int:
@@ -486,99 +616,173 @@ class _AbrState:
 
 
 class _GopRunner:
-    """The per-GOP steps every GOP mode shares: upload, motion and the
-    verdicts' host read, the recon chain, packing."""
+    """The per-chunk steps every GOP mode shares: upload, motion and the
+    verdicts' host read, the stability chain, the recon chain,
+    packing."""
 
     def __init__(self, enc: GopEncoder, meta: Metadata, dev):
         self.enc, self.dev = enc, dev
         self.meta_pkt = bytes(encode_metadata_packet(meta))
 
     def motion(self, rows):
-        """(images, host average lumas, motion, host has_ref)."""
+        """rows (C, n, fsz) -> (images, host average lumas (C, n), motion,
+        host has_ref (C, n-1))."""
+        C, n = rows.shape[:2]
         with record_function("gop.upload"):
             packed = torch.from_numpy(rows).to(self.dev)
         with record_function("gop.motion"):
             imgs, al, mv, has_ref = self.enc.motion(packed)
-            # one host read per GOP: the average lumas and the has_ref
+            # one host read per chunk: the average lumas and the has_ref
             # verdicts
-            parts = [al] if has_ref is None else [al, has_ref.to(al.dtype)]
+            parts = [al.reshape(-1)]
+            if has_ref is not None:
+                parts.append(has_ref.reshape(-1).to(al.dtype))
             hv = torch.cat(parts).cpu().numpy()
-            n = rows.shape[0]
-            return imgs, hv[:n], mv, hv[n:].astype(bool)
+            return (imgs, hv[:C * n].reshape(C, n), mv,
+                    hv[C * n:].astype(bool).reshape(C, n - 1))
 
-    def chain(self, st, imgs, mv, hr, **kw) -> GopOutput:
+    def stability(self, st, mv, hr, n_real: int):
+        with record_function("gop.stability"):
+            return self.enc.stab_chain(st, mv, hr, n_real)
+
+    def chain(self, st, imgs, mv, hr, stable, **kw) -> ChunkOutput:
         with record_function("gop.recon_chain"):
-            st.ref_recon = fr.alloc_image(self.enc.layouts[0],
-                                          device=self.dev)
-            return self.enc.encode_gop(st, imgs[0], mv, hr, **kw)
+            return self.enc.encode_chunk(st, imgs[0], mv, hr, stable, **kw)
 
-    def pack(self, res: GopOutput, g0: int, prev_link: int, n_real=None):
+    def pack(self, res: ChunkOutput, fnum0: int, prev_link: int,
+             n_real: int):
         with record_function("gop.pack"):
-            return res.pack(self.meta_pkt, g0, prev_link, n_real)
+            return res.pack(self.meta_pkt, fnum0, prev_link, n_real)
 
 
-def _encode_gop_abr(frames, cfg: EncoderConfig, run: _GopRunner,
-                    st: EncoderState, rate: _AbrState) -> tuple:
-    """GOP-granular ABR (the JAX package's abr_mode "gop", one GOP a
-    chunk): (stream bytes without EOS, last picture length).
+def _encode_chunks(frames, G: int, C: int, run: _GopRunner,
+                   st: EncoderState, fnum_base: int,
+                   rate: _AbrState | None = None) -> tuple:
+    """CRF, or GOP-granular ABR with `rate` (the JAX package's abr_mode
+    "gop"), C GOPs a chunk: (stream bytes without EOS, last picture
+    length).
 
-    Replays the JAX package's schedule, on which the bytes depend: a
-    GOP's quality is set when the GOP enters the pipeline, which holds
-    one GOP until the model has two points and DSV1_PREFETCH GOPs
-    (default 2) after that, so GOP k >= 2 mostly sees the sizes up to
-    GOP k-2. A short tail GOP reached before calibration is padded with
-    its last frame, as the JAX package pads it, since padded frames count
-    in its overflow verdict (once calibrated, the verdict only picks
-    between two packers of the same bytes, so the port does not pad).
-    Calibration runs on the first GOP that did not overflow: its trial
-    pack feeds the model, and the GOP is encoded again at the corrected
-    quality from its entry state (stability, counter; the motion is
+    Under GOP-granular ABR a chunk's GOPs share one quality, and the
+    port replays the JAX package's schedule, on which the bytes depend:
+    a chunk's quality is set when the chunk enters the pipeline, which
+    holds one chunk until the model has two points and DSV1_PREFETCH
+    chunks (default 2) after that, so chunk k >= 2 mostly sees the sizes
+    up to chunk k-2. Each real GOP of a packed chunk adds a point. The
+    first chunk whose compacted planes fit their caps (padded GOPs and
+    frames count in that verdict, as in the JAX package) is packed as a
+    trial, the model fed and the chunk encoded again at the corrected
+    quality from its entry state (the motion and the stability chain are
     reused)."""
-    G = cfg.gop
     out = bytearray()
     prev_link = 0
-    calibrated = False
+    calibrated = rate is None
+    meta_len = len(run.meta_pkt)
 
     def depth():
         return 1 if len(rate.pts) < 2 else _env_int("DSV1_PREFETCH", 2)
 
-    for gi, ((g0, rows), (quants, quals)) in enumerate(_pipelined(
-            _packed_gops(frames, G), lambda _item: rate.gop_quants(),
-            depth)):
-        n = rows.shape[0]
-        if n < G and not calibrated:
-            rows = np.concatenate([rows, np.repeat(rows[-1:], G - n, 0)])
+    def feed(pkt, quals, n_real):
+        for nbytes, nf in gop_bytes(pkt, meta_len, n_real, G):
+            rate.gop_done(quals[1], nbytes, nf)
+
+    chunks = _chunks(frames, C, G)
+    sched = (((c, (None, None)) for c in chunks) if rate is None
+             else _pipelined(chunks, lambda _c: rate.gop_quants(), depth))
+    for (f0, rows, n_real), (quants, quals) in sched:
+        STATS["chunks"] += 1
         imgs, _al, mv, hr = run.motion(rows)
-        entry = (st.stability, st.refresh_ctr)
-        res = run.chain(st, imgs, mv, hr, quants=quants)
+        stable = run.stability(st, mv, hr, n_real)
+        res = run.chain(st, imgs, mv, hr, stable, quants=quants)
         if not res.overflow and not calibrated:
             calibrated = True
-            STATS["calibration_gop"] = gi
-            trial, _ = run.pack(res, g0, prev_link, n)
-            rate.gop_done(quals[1], sum(picture_sizes(trial,
-                                                      len(run.meta_pkt))), n)
+            STATS["calibration_gop"] = f0 // G
+            trial, _ = run.pack(res, fnum_base + f0, prev_link, n_real)
+            feed(trial, quals, n_real)
             quants, quals = rate.gop_quants()
-            st.stability, st.refresh_ctr = entry
-            res = run.chain(st, imgs, mv, hr, quants=quants)
-        pkt, prev_link = run.pack(res, g0, prev_link, n)
+            res = run.chain(st, imgs, mv, hr, stable, quants=quants)
+        pkt, prev_link = run.pack(res, fnum_base + f0, prev_link, n_real)
         out.extend(pkt)
-        rate.gop_done(quals[1], sum(picture_sizes(pkt, len(run.meta_pkt))),
-                      n)
+        if rate is not None:
+            feed(pkt, quals, n_real)
     return out, prev_link
 
 
+def _encode_abr_exact(frames, cfg: EncoderConfig, meta: Metadata,
+                      run: _GopRunner, st: EncoderState,
+                      fnum_base: int) -> tuple:
+    """The reference's per-frame ABR law, one GOP at a time (the JAX
+    package's chunk is a serial scan over its GOPs, so its bytes do not
+    depend on the chunk): (stream bytes without EOS, last picture
+    length)."""
+    law = rc.make_abr_law(cfg, meta)
+    out = bytearray()
+    prev_link = 0
+    for f0, rows, n_real in _chunks(frames, 1, cfg.gop, pad=False):
+        STATS["chunks"] += 1
+        imgs, al_h, mv, hr = run.motion(rows)
+        forced_i = False
+        if cfg.do_scd:
+            # the GOP's I frame is a scene cut against the previous frame
+            # (the zero-initialised luma before frame 0) and so counts as
+            # forced intra for the law (dsv_encoder.c:538-554, 133-141)
+            forced_i = abs(int(al_h[0, 0]) - st.prev_al) \
+                > cfg.scene_change_delta
+            st.prev_al = int(al_h[0, -1])
+        stable = run.stability(st, mv, hr, n_real)
+        res = run.chain(st, imgs, mv, hr, stable, law=law,
+                        forced_i=forced_i)
+        pkt, prev_link = run.pack(res, fnum_base + f0, prev_link, n_real)
+        out.extend(pkt)
+    return out, prev_link
+
+
+def gops_per_chunk(cfg: EncoderConfig, w: int, h: int, n_frames: int = 0,
+                   gops_per_device: int = 0) -> int:
+    """GOPs a chunk (a launch of each kernel), the JAX package's rule:
+    gops_per_device, else DSV1_GOPS_PER_DEVICE, else as many GOPs as fit
+    the pixels of 4 CIF GOPs of 12 frames, at most 4 and at most the
+    GOPs of the input where its length is known; 1 under ABR unless
+    gops_per_device is given."""
+    G = cfg.gop
+    known = div_round(n_frames, G) if n_frames else 0
+    per = gops_per_device or _env_int("DSV1_GOPS_PER_DEVICE", 0) or max(
+        1, min(4, (4 * 352 * 288 * 12) // max(G * w * h, 1),
+               known or (1 << 30)))
+    if cfg.rc_mode != RATE_CONTROL_CRF and not gops_per_device:
+        per = 1   # rate feedback per GOP beats batch width
+    return per
+
+
 def encode_stream_gops(frames, meta: Metadata,
-                       cfg: EncoderConfig | None = None, device="cuda", *,
-                       abr_mode: str = "exact") -> bytes:
-    """Encode (y, u, v) uint8 frames (any iterable, read GOP by GOP) into
-    a full .dsv stream, GOP by GOP on `device`. CRF (gop 0 included:
-    intra only), or ABR: with the reference's per-frame law (abr_mode
-    "exact") or GOP-granular (abr_mode "gop", `_encode_gop_abr`).
-    Byte-identical to the JAX package's encode_stream_gops for the same
-    frames and config, effort 1..3 (the wider level-0 motion search,
-    ops/hme.py hme_batch) included. Raises the JAX package's ValueError
-    for ABR at gop 0 and for gop > 4096 (the sequential `Encoder` runs
-    those)."""
+                       cfg: EncoderConfig | None = None, device="cuda",
+                       gops_per_device: int = 0, *,
+                       abr_mode: str = "exact", _fnum_base: int = 0,
+                       _emit_eos: bool = True, _return_state: bool = False,
+                       _stab_init: tuple | None = None):
+    """Encode (y, u, v) uint8 frames (any iterable, read chunk by chunk)
+    into a full .dsv stream on `device`. CRF (gop 0 included: intra
+    only), or ABR: with the reference's per-frame law (abr_mode "exact")
+    or GOP-granular (abr_mode "gop"). Byte-identical to the JAX
+    package's encode_stream_gops for the same frames, config and
+    arguments, effort 1..3 (the wider level-0 motion search, ops/hme.py
+    hme_batch) included.
+
+    gops_per_device: GOPs a chunk, each chunk's GOPs through one launch
+    of each kernel per frame index (`gops_per_chunk`: 0 takes the JAX
+    package's rule, up to 4 for frames of CIF size; 1 under ABR). Under
+    GOP-granular ABR a chunk's GOPs share one quality, so the chunk
+    changes the bytes, as in the JAX package; per-frame ABR runs one GOP
+    at a time whatever the argument (its bytes do not depend on it).
+
+    The underscore arguments serve the sharded path
+    (parallel/multihost.py): a frame-number offset, no EOS for a partial
+    stream, and with `_return_state` the return value (stream, last
+    picture length, (stability (nblk, 2) int32, refresh counter)) after
+    the last frame; `_stab_init` is such a state (the port's or a JAX
+    EncodedShard.stab_final) to start from. Per-frame ABR ignores
+    `_stab_init`, as the JAX package does. Raises the JAX package's
+    ValueError for ABR at gop 0, for gop > 4096 (the sequential `Encoder`
+    runs those) and for per-frame ABR with `_return_state`."""
     cfg = cfg or EncoderConfig()
     dev = resolve(device)
     abr = cfg.rc_mode != RATE_CONTROL_CRF
@@ -591,41 +795,46 @@ def encode_stream_gops(frames, meta: Metadata,
     if abr_mode not in ("exact", "gop"):
         raise ValueError(f"abr_mode must be 'exact' or 'gop', not "
                          f"{abr_mode!r}")
-    if cfg.gop == GOP_INTRA:
-        return _encode_intra(frames, meta, cfg, dev)
+    exact = abr and abr_mode == "exact"
+    if exact and _return_state:
+        raise ValueError("exact per-frame ABR is a serial rate chain (single "
+                         "device); use abr_mode='gop' for meshes / shard "
+                         "state")
     w, h, subsamp = meta.width, meta.height, meta.subsamp
-    G = cfg.gop
-    enc = build_gop_encoder(subsamp, w, h, G, cfg.quality, cfg.do_scd,
-                            cfg.scene_change_delta, cfg.intra_pct_thresh,
-                            cfg.stable_refresh, cfg.pyramid_levels, str(dev),
-                            cfg.max_quality if abr else None, cfg.effort)
-    run = _GopRunner(enc, meta, dev)
-    # GOPs run in order: the accumulators, counter and rate state carry
-    # across them
-    st = EncoderState(
-        stability=torch.zeros((enc.nbh * enc.nbv, 2), dtype=torch.int32,
-                              device=dev),
-        refresh_ctr=0, prev_al=0, ref_recon=None,
-        rc=rc.init_state(cfg.quality, dev) if abr else None)
-    if abr and abr_mode == "gop":
-        out, prev_link = _encode_gop_abr(frames, cfg, run, st,
-                                         _AbrState(cfg, meta))
+    if cfg.gop == GOP_INTRA:
+        out, prev_link = _encode_intra(frames, meta, cfg, dev, _fnum_base)
+        nblk = block_geometry(w, h)[2] * block_geometry(w, h)[3]
+        state = (np.zeros((nblk, 2), np.int32), 0)
+    else:
+        G = cfg.gop
+        enc = build_gop_encoder(subsamp, w, h, G, cfg.quality, cfg.do_scd,
+                                cfg.scene_change_delta, cfg.intra_pct_thresh,
+                                cfg.stable_refresh, cfg.pyramid_levels,
+                                str(dev), cfg.max_quality if abr else None,
+                                cfg.effort)
+        run = _GopRunner(enc, meta, dev)
+        nblk = enc.nbh * enc.nbv
+        init = None if exact else _stab_init
+        st = EncoderState(
+            stability=torch.from_numpy(
+                np.zeros((nblk, 2), np.int32) if init is None else
+                np.array(init[0], np.int32).reshape(nblk, 2)).to(dev),
+            refresh_ctr=0 if init is None else int(init[1]), prev_al=0,
+            ref_recon=None,
+            rc=rc.init_state(cfg.quality, dev) if exact else None)
+        if exact:
+            out, prev_link = _encode_abr_exact(frames, cfg, meta, run, st,
+                                               _fnum_base)
+        else:
+            C = gops_per_chunk(cfg, w, h, len(frames) if hasattr(
+                frames, "__len__") else 0, gops_per_device)
+            out, prev_link = _encode_chunks(
+                frames, G, C, run, st, _fnum_base,
+                _AbrState(cfg, meta) if abr else None)
+        state = (st.stability.cpu().numpy().astype(np.int32),
+                 int(st.refresh_ctr))
+    if _emit_eos:
         out.extend(encode_eos_packet(prev_link))
-        return bytes(out)
-    law = rc.make_abr_law(cfg, meta) if abr else None
-    out = bytearray()
-    prev_link = 0
-    for g0, rows in _packed_gops(frames, G):
-        imgs, al_h, mv, hr = run.motion(rows)
-        forced_i = False
-        if abr and cfg.do_scd:
-            # the GOP's I frame is a scene cut against the previous frame
-            # (the zero-initialised luma before frame 0) and so counts as
-            # forced intra for the law (dsv_encoder.c:538-554, 133-141)
-            forced_i = abs(int(al_h[0]) - st.prev_al) > cfg.scene_change_delta
-            st.prev_al = int(al_h[-1])
-        res = run.chain(st, imgs, mv, hr, law=law, forced_i=forced_i)
-        pkt, prev_link = run.pack(res, g0, prev_link)
-        out.extend(pkt)
-    out.extend(encode_eos_packet(prev_link))
+    if _return_state:
+        return bytes(out), prev_link, state
     return bytes(out)

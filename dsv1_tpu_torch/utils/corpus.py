@@ -10,8 +10,10 @@ import numpy as np
 from ..constants import format_h_shift, format_v_shift, round_shift
 
 
-def make_clip(w, h, subsamp, nframes, seed=0, motion=True):
-    """Moving textured square over noisy gradient; returns planar bytes."""
+def make_clip(w, h, subsamp, nframes, seed=0, motion=True, cut_at=-1):
+    """Moving textured square over noisy gradient; returns planar bytes.
+    cut_at >= 0 halves the luma from that frame on: a hard scene cut (the
+    average luma drops by about 64), which forces an intra frame."""
     rng = np.random.default_rng(seed)
     hs, vs = format_h_shift(subsamp), format_v_shift(subsamp)
     cw, ch = round_shift(w, hs), round_shift(h, vs)
@@ -27,6 +29,8 @@ def make_clip(w, h, subsamp, nframes, seed=0, motion=True):
             y[sy:sy + 20, sx:sx + 20] += 60
             y = np.roll(y, i, axis=1)
         y = np.clip(y + rng.integers(-4, 4, (h, w)), 0, 255).astype(np.uint8)
+        if 0 <= cut_at <= i:
+            y >>= 1
         u = np.clip(110 + rng.integers(-9, 9, (ch, cw)) + (i * 2), 0,
                     255).astype(np.uint8)
         v = np.clip(135 + rng.integers(-9, 9, (ch, cw)), 0, 255).astype(np.uint8)

@@ -10,7 +10,14 @@ bitrate, gop 12, the GOP-parallel encoder), `1080p_seq_cli` with
 is hashed too), `1080p_gop0_cli` intra only (-gop0 -rc_mode1) and
 `1080p_gopabr_cli` with -gopabr1 (GOP-granular ABR: three full GOPs and
 the next GOP's I frame, so the rate model's pipeline reaches its full
-depth).
+depth). The `*_batch*` clips go through `encode_stream_gops` with the
+arguments `API` gives them (`encode_args`): `cif_batch` at its default
+chunk (4 GOPs a launch, then a tail GOP of 4 frames padded to a chunk),
+`cif_batch_cut` with a hard cut in its second GOP and stable_refresh 4
+(carried stability states, a frame index with P and intra frames), and
+`1080p_gopabr_batch` with the CLI's -gopabr1 settings at 2 GOPs a chunk
+(the chunk shares one quality, so its bytes differ from
+`1080p_gopabr_cli`'s).
 """
 
 import hashlib
@@ -19,7 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..constants import SUBSAMP_420
+from ..constants import SUBSAMP_420, quality_percent
 from . import corpus
 
 GOLDEN = Path(__file__).resolve().parent.parent / "data" / "golden.json"
@@ -52,6 +59,22 @@ CLIPS = {
     "1080p_effort_seq_cli": (1920, 1080, "make_rich_clip", 13,
                              ("-w1920", "-h1080", "-gopar0", "-effort2"),
                              {}),
+    "cif_batch": (352, 288, "make_clip", 52, None, {}),
+    "cif_batch_cut": (352, 288, "make_clip", 40, None, {}),
+    "1080p_gopabr_batch": (1920, 1080, "make_rich_clip", 37, None, {}),
+}
+
+# extra arguments of a clip's generator
+GEN_KW = {"cif_batch_cut": {"cut_at": 18}}
+
+# the encode_stream_gops clips beyond `cif` and `1080p`: EncoderConfig
+# fields over the CRF defaults (or `cli`: the CLI arguments whose config
+# the encode takes), gops_per_device and abr_mode
+API = {
+    "cif_batch": {},
+    "cif_batch_cut": {"cfg": {"stable_refresh": 4}},
+    "1080p_gopabr_batch": {"cli": ["-w1920", "-h1080", "-gopabr1"],
+                           "gops_per_device": 2, "abr_mode": "gop"},
 }
 
 
@@ -66,8 +89,28 @@ def sha(b: bytes) -> str:
 def clip_frames(name: str):
     """(raw planar clip bytes, [(y, u, v), ...]) for a golden clip."""
     w, h, gen, n = CLIPS[name][:4]
-    yuv = getattr(corpus, gen)(w, h, SUBSAMP_420, n, seed=SEED)
+    yuv = getattr(corpus, gen)(w, h, SUBSAMP_420, n, seed=SEED,
+                               **GEN_KW.get(name, {}))
     return yuv, corpus.split_frames(yuv, w, h, SUBSAMP_420, n)
+
+
+def encode_args(name: str):
+    """(Metadata, EncoderConfig, keyword arguments of encode_stream_gops)
+    of an encode_stream_gops clip, as the port's classes; the JAX
+    package's take the same fields."""
+    from ..cli import encode_config
+    from ..models.encoder import EncoderConfig
+    from ..models.metadata import Metadata
+    w, h = CLIPS[name][:2]
+    spec = API.get(name, {})
+    kw = {k: spec[k] for k in ("gops_per_device", "abr_mode") if k in spec}
+    if "cli" in spec:
+        meta, cfg, _mode = encode_config(list(spec["cli"]))
+        return meta, cfg, kw
+    cfg = EncoderConfig(**{"quality": quality_percent(QUALITY_PCT),
+                           "gop": GOP, "stable_refresh": GOP - 1,
+                           **spec.get("cfg", {})})
+    return Metadata(w, h, SUBSAMP_420), cfg, kw
 
 
 def cli_encode_args(name: str, inp, out) -> list:

@@ -4,17 +4,25 @@
 paths run; callers set it to 0 with `STATS.clear()`. Keys:
 
 - `core_i`, `core_p`: frames through the encode core as intra and as P
-  (a forced-intra P slot counts as intra); a frame encoded twice counts
-  twice;
+  (a forced-intra P slot counts as intra; padded frames of a tail chunk
+  count); a frame encoded twice counts twice;
+- `core_calls_i`, `core_calls_p`: calls of the encode core on intra and
+  on P frames: a frame, or on the GOP path the frames of one type at
+  one frame index of a chunk's GOPs (each call launches each kernel
+  once);
+- `chunks`: chunks of GOPs the GOP path encoded (gop > 0);
+- `stab_carried`: GOPs whose I frame found the stability accumulators
+  carried from the GOP before (the refresh counter between 0 and its
+  period), which the JAX package encodes a second time;
 - `hme_calls`, `hme_calls_wide`: `hme_batch` calls at effort 0 and at
-  effort 1..3 (one per GOP of more than one frame on the GOP path, one
-  per P frame on the sequential `Encoder`);
+  effort 1..3 (one per chunk of GOPs of more than one frame on the GOP
+  path, one per P frame on the sequential `Encoder`);
 - `decode_p`: P pictures predicted by the decoders;
-- `overflow_redos`: GOPs (gop 0: chunks; sequential: frames) whose
-  compacted planes overflowed their caps and were packed from the dense
-  planes instead;
-- `calibration_gop`: under GOP-granular ABR, the GOP on which the rate
-  model was calibrated (absent until it has been).
+- `overflow_redos`: chunks of GOPs (gop 0: chunks of frames;
+  sequential: frames) whose compacted planes overflowed their caps and
+  were packed from the dense planes instead;
+- `calibration_gop`: under GOP-granular ABR, the first GOP of the chunk
+  on which the rate model was calibrated (absent until it has been).
 
 chip_smoke.py predicts each kernel's launches on a path from these.
 """

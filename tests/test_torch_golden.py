@@ -8,7 +8,10 @@ frames), `cif_cli` and `4k_cli` through the CLI at its defaults
 -drawinfo7 decode) and `1080p_gop0_cli` (-gop0 -rc_mode1) through the
 CLI's sequential and intra-only paths, `1080p_gopabr_cli` (-gopabr1,
 GOP-granular ABR), and `1080p_effort_cli`, `4k_effort_cli` (-effort3)
-and `1080p_effort_seq_cli` (-gopar0 -effort2). Here the CIF entries are
+and `1080p_effort_seq_cli` (-gopar0 -effort2), and the clips of
+several GOPs a launch through `encode_stream_gops` with their own
+arguments (`cif_batch`, `cif_batch_cut`, `1080p_gopabr_batch`,
+utils/golden.py API). Here the CIF entries are
 regenerated from JAX on the CPU and checked against the file, and the
 port's CPU encode and decode (through `encode_stream_gops` or the CLI)
 are checked against it, as is the port's intra-only 1080p CLI run; the
@@ -38,10 +41,8 @@ def _check_port(name):
     gold = g.load()[name]
     yuv, frames = g.clip_frames(name)
     assert g.sha(yuv) == gold["clip_sha256"]
-    meta = dt.Metadata(gold["width"], gold["height"], dt.SUBSAMP_420)
-    cfg = dt.EncoderConfig(quality=dt.quality_percent(g.QUALITY_PCT),
-                           gop=g.GOP, stable_refresh=g.GOP - 1)
-    stream = dt.encode_stream_gops(frames, meta, cfg, device="cpu")
+    meta, cfg, kw = g.encode_args(name)
+    stream = dt.encode_stream_gops(frames, meta, cfg, "cpu", **kw)
     assert len(stream) == gold["stream_bytes"]
     assert g.sha(stream) == gold["stream_sha256"]
     _m, dec = dt.decode_stream_gops(stream, device="cpu")
@@ -133,3 +134,20 @@ def test_effort_cli_golden_matches_jax(name):
 @pytest.mark.parametrize("name", ["1080p_effort_cli", "1080p_effort_seq_cli"])
 def test_port_effort_cli_matches_golden(name, tmp_path):
     _check_port_cli(name, tmp_path)
+
+
+@pytest.mark.parametrize("name", ["cif_batch", "cif_batch_cut"])
+def test_port_batch_matches_golden(name):
+    _check_port(name)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["cif_batch", "cif_batch_cut",
+                                  "1080p_gopabr_batch"])
+def test_batch_golden_matches_jax(name):
+    _check_jax(name)
+
+
+@pytest.mark.slow
+def test_port_1080p_gopabr_batch_matches_golden():
+    _check_port("1080p_gopabr_batch")

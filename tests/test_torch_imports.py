@@ -41,6 +41,13 @@ s = dt.encode_stream_gops(frames, dt.Metadata(w, h, dt.SUBSAMP_420),
                           device="cpu")
 meta, dec = dt.decode_stream_gops(s, device="cpu")
 assert len(dec) == 3
+from dsv1_tpu_torch.parallel import multihost
+mh = multihost.encode_stream_multihost(
+    frames * 3, dt.Metadata(w, h, dt.SUBSAMP_420),
+    dt.EncoderConfig(gop=3, stable_refresh=2), n_shards=2, device="cpu")
+assert mh == dt.encode_stream_gops(
+    frames * 3, dt.Metadata(w, h, dt.SUBSAMP_420),
+    dt.EncoderConfig(gop=3, stable_refresh=2), device="cpu")
 enc = dt.Encoder(dt.Metadata(w, h, dt.SUBSAMP_420),
                  dt.EncoderConfig(gop=3, stable_refresh=2), device="cpu")
 enc.start()
@@ -76,7 +83,9 @@ IMPORT_OF_JAX_PACKAGE = re.compile(
 
 def test_no_source_imports_the_jax_package():
     files = sorted((ROOT / "dsv1_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    # chip_smoke.py and the tools it runs
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile.py",
+              ROOT / "tools" / "torch_shard_worker.py"]
     assert len(files) > 20
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in IMPORT_OF_JAX_PACKAGE.finditer(
@@ -110,6 +119,11 @@ def test_cuda_request_raises_without_cuda():
         lambda: dt.Decoder(),
         lambda: dt.encode_stream_gops(frames, meta, dt.EncoderConfig(gop=2),
                                       device="cuda"),
+        lambda: dt.encode_stream_multihost(frames, meta,
+                                           dt.EncoderConfig(gop=2)),
+        lambda: dt.encode_shard(frames, meta, dt.EncoderConfig(gop=2), 0),
+        lambda: dt.run_distributed_shard("127.0.0.1:1", 1, 0, frames, meta,
+                                         dt.EncoderConfig(gop=2)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

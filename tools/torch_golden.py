@@ -2,12 +2,14 @@
 
 For the `cif` and `1080p` clips, encodes with the JAX package's
 GOP-parallel CRF encoder on the CPU (gop 12, qp 85, stable_refresh 11)
-and decodes with its GOP-parallel decoder. For the `*_cli` clips, runs
-`python -m dsv1_tpu.cli e` with the clip's arguments (the defaults:
-per-frame ABR, auto bitrate, gop 12) and `d`, plus each extra decode the
-clip lists (`-drawinfo7` for `1080p_seq_cli`), under JAX_PLATFORMS=cpu.
-Records the SHA-256 of the input clip, of the stream and of each decode
-in
+and decodes with its GOP-parallel decoder; the `*_batch*` clips the
+same way, with the config and the `gops_per_device` / `abr_mode`
+arguments that `API` of dsv1_tpu_torch/utils/golden.py gives them. For
+the `*_cli` clips, runs `python -m dsv1_tpu.cli e` with the clip's
+arguments (the defaults: per-frame ABR, auto bitrate, gop 12) and `d`,
+plus each extra decode the clip lists (`-drawinfo7` for
+`1080p_seq_cli`), under JAX_PLATFORMS=cpu. Records the SHA-256 of the
+input clip, of the stream and of each decode in
 `dsv1_tpu_torch/data/golden.json`. `chip_smoke.py` and
 `tests/test_torch_golden.py` check the port against that file. The
 clips and their settings are `dsv1_tpu_torch/utils/golden.py`; only
@@ -28,10 +30,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from dsv1_tpu_torch.utils.golden import (CLIPS, GOLDEN, GOP,  # noqa: E402
+from dsv1_tpu_torch.utils.golden import (API, CLIPS, GOLDEN,  # noqa: E402
                                          QUALITY_PCT, SEED, clip_frames,
                                          cli_decode_args, cli_encode_args,
-                                         decoded_bytes, sha)
+                                         decoded_bytes, encode_args, sha)
 
 
 def jax_entry(name: str) -> dict:
@@ -40,23 +42,26 @@ def jax_entry(name: str) -> dict:
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from dsv1_tpu.constants import (RATE_CONTROL_CRF, SUBSAMP_420,
-                                    quality_percent)
+    from dataclasses import asdict
+
     from dsv1_tpu.models.encoder import EncoderConfig
     from dsv1_tpu.models.metadata import Metadata
     from dsv1_tpu.parallel import decode_stream_gops, encode_stream_gops
 
     w, h, _gen, n = CLIPS[name][:4]
     yuv, frames = clip_frames(name)
-    cfg = EncoderConfig(quality=quality_percent(QUALITY_PCT), gop=GOP,
-                        rc_mode=RATE_CONTROL_CRF, stable_refresh=GOP - 1)
-    stream = encode_stream_gops(frames, Metadata(w, h, SUBSAMP_420), cfg)
+    meta, cfg, kw = encode_args(name)
+    stream = encode_stream_gops(frames, Metadata(**asdict(meta)),
+                                EncoderConfig(**asdict(cfg)), **kw)
     _meta, dec = decode_stream_gops(stream)
-    return {"width": w, "height": h, "frames": n, "seed": SEED,
-            "gop": GOP, "quality_pct": QUALITY_PCT,
-            "clip_sha256": sha(yuv), "stream_sha256": sha(stream),
-            "stream_bytes": len(stream),
-            "decode_sha256": sha(decoded_bytes(dec))}
+    entry = {"width": w, "height": h, "frames": n, "seed": SEED,
+             "gop": cfg.gop, "quality_pct": QUALITY_PCT,
+             "clip_sha256": sha(yuv), "stream_sha256": sha(stream),
+             "stream_bytes": len(stream),
+             "decode_sha256": sha(decoded_bytes(dec))}
+    if name in API:
+        entry["encode"] = {**API[name], "config": asdict(cfg)}
+    return entry
 
 
 def jax_cli_entry(name: str) -> dict:

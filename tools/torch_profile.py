@@ -5,9 +5,12 @@ under torch.profiler: the CRF clips (`cif`, `1080p`) through
 `dsv1_tpu_torch.encode_stream_gops`, the CLI clips (`cif_cli`, `4k_cli`)
 through `dsv1_tpu_torch.cli.main` with the CLI's defaults (per-frame
 ABR), from and to files, the sequential clips with their own CLI
-arguments. Reads the layer spans the encoder records (per GOP
-`gop.upload`, `gop.motion`, `gop.recon_chain` with `gop.rate_read`
-inside it under ABR, `gop.pack`, and `gop.intra_core` at gop 0;
+arguments, the `*_batch*` clips through `encode_stream_gops` with the
+arguments utils/golden.py API gives them (`--gops-per-device N`
+overrides the chunk of an `encode_stream_gops` clip). Reads the layer
+spans the encoder records (per chunk of GOPs `gop.upload`, `gop.motion`,
+`gop.stability`, `gop.recon_chain` with `gop.rate_read` inside it under
+ABR, `gop.pack`, and `gop.intra_core` at gop 0;
 parallel/gop.py; per frame of the sequential Encoder `seq.motion`,
 `seq.core`, `seq.pack`; models/encoder.py), the device busy share, the
 top device kernels, the device kernels launched per encoded frame
@@ -23,6 +26,7 @@ bytes per frame, the unprofiled wall and the spans' seconds. Needs a
 CUDA device.
 
     python3 tools/torch_profile.py [--clip NAME] [--out FILE]
+        [--gops-per-device N]
 """
 
 import argparse
@@ -34,8 +38,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-SPANS = ("gop.upload", "gop.motion", "gop.recon_chain", "gop.rate_read",
-         "gop.pack", "gop.intra_core", "seq.motion", "seq.core", "seq.pack")
+SPANS = ("gop.upload", "gop.motion", "gop.stability", "gop.recon_chain",
+         "gop.rate_read", "gop.pack", "gop.intra_core", "seq.motion",
+         "seq.core", "seq.pack")
 
 
 def _sync():
@@ -102,6 +107,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--clip", choices=sorted(CLIPS), default="1080p")
     ap.add_argument("--out", default=None, help="also write JSON here")
+    ap.add_argument("--gops-per-device", type=int, default=None,
+                    help="GOPs a chunk of an encode_stream_gops clip")
     args = ap.parse_args()
     import subprocess
     import tempfile
@@ -110,9 +117,9 @@ def main():
 
     import dsv1_tpu_torch as dt
     from dsv1_tpu_torch import cli
-    from dsv1_tpu_torch.utils.golden import (GOP, QUALITY_PCT,
-                                             cli_decode_args,
-                                             cli_encode_args, clip_frames)
+    from dsv1_tpu_torch.utils.golden import (cli_decode_args,
+                                             cli_encode_args, clip_frames,
+                                             encode_args)
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA device")
@@ -121,17 +128,17 @@ def main():
                           text=True).stdout.strip()
     dev = torch.device("cuda", 0)
     yuv, frames = clip_frames(args.clip)
-    h, w = frames[0][0].shape
-    meta = dt.Metadata(w, h, dt.SUBSAMP_420)
-    cfg = dt.EncoderConfig(quality=dt.quality_percent(QUALITY_PCT), gop=GOP,
-                           stable_refresh=GOP - 1)
     td = Path(tempfile.mkdtemp())
     inp, dsv, out = td / "in.yuv", td / "s.dsv", td / "o.yuv"
     inp.write_bytes(yuv)
 
     if CLIPS[args.clip][4] is None:
+        meta, cfg, kw = encode_args(args.clip)
+        if args.gops_per_device is not None:
+            kw["gops_per_device"] = args.gops_per_device
+
         def encode():
-            return dt.encode_stream_gops(frames, meta, cfg, device=dev)
+            return dt.encode_stream_gops(frames, meta, cfg, dev, **kw)
 
         def decode(stream):
             return dt.decode_stream_gops(stream, device=dev)
@@ -166,6 +173,7 @@ def main():
         f.unlink(missing_ok=True)
     td.rmdir()
     res = {"clip": args.clip, "frames": len(frames), "card": card,
+           "gops_per_device": args.gops_per_device,
            "encode": {"wall_s": plain_wall, "profiled_wall_s": enc_wall,
                       "spans_s": spans, "device_busy_share": enc_busy,
                       "kernels_per_frame": enc_k / nf,
@@ -181,6 +189,7 @@ def main():
                       "top_kernels_us": dec_top}}
     print(json.dumps(res, indent=1))
     print(json.dumps({"clip": args.clip, "card": card,
+                      "gops_per_device": args.gops_per_device,
                       "encode_kernels_per_frame": enc_k / nf,
                       "encode_host_reads_per_frame": enc_r / nf,
                       "encode_d2h_bytes_per_frame": per_frame(enc_b),
