@@ -88,7 +88,25 @@ non-zero:
    `run_distributed_shard` in 2 processes on this card (gloo on
    127.0.0.1, tools/torch_shard_worker.py), each muxed stream equal to
    `cif_batch`'s golden.
-Phases 5 to 9 are main paths: each path's streams and decodes must
+10. mesh   — the batched decode, GOP meshes, column tiles and the gop x
+   tile encode, on mesh entries that share the one card (the split, the
+   carried state and the bytes are checked; scaling is not): first the
+   level-0 search at the +-64 limit (a 64-pixel pan at 64x64 blocks and
+   6 levels) through `hme_batch` on the card against the port on the
+   CPU at effort 0 and 2, and kernels #3 (`hme_base`) and #2 at level 0
+   (`hme_refine_level0`), `hme_wide` and the coarse call against their
+   plain versions with candidates and `pre` at the limit; `cif_batch`'s
+   stream decoded 4 chains a launch (the JAX rule) with its decode
+   frames/s and `mc` launches per decoded frame; over
+   gop_mesh(["cuda:0"] * 2) `cif_batch` encoded and decoded, the `1080p`
+   CRF clip, and `1080p_gopabr_batch`'s clip at -gopabr1's settings at
+   1 GOP a device (the bytes of 2 GOPs a chunk); `fwd_sbt_tiled`,
+   `inv_sbt_tiled` and `encode_plane_tiled` on tile_mesh(["cuda:0"] * 4)
+   on 1080p luma I and P planes against the untiled functions, each
+   tiled Haar level on kernel #5 with its launches predicted;
+   gop_tile_mesh(1, 4) on the `1080p` clip and (2, 2) on `cif`. Each
+   stream and decode against its golden; about a minute.
+Phases 5 to 10 are main paths: each path's streams and decodes must
 hash to dsv1_tpu_torch/data/golden.json (written from the JAX package
 by tools/torch_golden.py), and the kernels' launch counts are set to 0
 before each path and read after it; every kernel of a path must have
@@ -100,14 +118,15 @@ the gop-0 encode, `mc` on the decoders), and each count must equal the count
 predicted from what the path did (`dsv1_tpu_torch/utils/stats.py`
 STATS: calls of the encode core on intra and on P frames, each a frame
 or the frames of one type at one frame index of a chunk, HME calls at
-effort 0 and above, one a chunk, P pictures decoded) and from
-each wrapper's launches per call at the clip's geometry
+effort 0 and above, one a chunk, MC calls of the decoders: a frame
+index of a chunk of chains, or a picture of the sequential `Decoder`)
+and from each wrapper's launches per call at the clip's geometry
 (`predict_launches`). Each encode prints its `overflow_redos`: the
 chunks of GOPs (gop 0: chunks of frames; sequential: frames) whose
 compaction overflowed and were packed from their dense planes.
 
 The line before the card's line lists every kernel with its launches
-summed over the main paths of phases 5 to 9 (4k_cli's level 0 on the
+summed over the main paths of phases 5 to 10 (4k_cli's level 0 on the
 `hme_base_banded` row), its error and times; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -230,6 +249,13 @@ class Bound:
                 "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _plane_bytes(src, lay):
+    """Bytes of the (B, EH, S) luma planes a search reads from the (B, n)
+    flat images src of layout lay."""
+    p = lay.planes[0]
+    return src.shape[0] * (p.h + 2 * p.ext) * p.stride
+
+
 def _search_area(w, h, nbh_l, nb, BW, BH):
     """Pixels inside the frame over all blocks of a level."""
     return min(nbh_l * BW, w) * min((nb // nbh_l) * BH, h)
@@ -248,7 +274,8 @@ def work_hme_coarse(cargs):
         nbh_l = -(-nbh // step)
         nb = nbh_l * -(-nbv // step)
         B, NC = src[level].shape[0], 1 if level == levels else 6
-        nbytes += 2 * src[level].numel() + B * nb * (2 * NC + 3) * 4
+        nbytes += 2 * _plane_bytes(src[level], lays[level]) \
+            + B * nb * (2 * NC + 3) * 4
         ops += B * _search_area(p.w, p.h, nbh_l, nb, BW, BH) * SAD_OPS \
             * (NC + 9)
     return nbytes, ops
@@ -261,11 +288,12 @@ def work_hme_base(args):
     window, intra test, quadrant metric) and, per in-frame block, 10 ops
     per pixel of the 14x14 centre for each of the 8 half-pel points and
     20 for the two texture statistics."""
-    src2d, _ref, cm, _E, w, h, nbh_l, nb, BW, BH = args
-    B, NC = src2d.shape[0], cm.shape[-1] // 2
+    src, _ref, lay, cm, nbh_l, nb, BW, BH = args
+    w, h = lay.planes[0].w, lay.planes[0].h
+    B, NC = src.shape[0], cm.shape[-1] // 2
     nbv_l = nb // nbh_l
     inframe = min(nbh_l, -(-w // BW)) * min(nbv_l, -(-h // BH))
-    nbytes = 2 * src2d.numel() + B * nb * (2 * NC + 6) * 4
+    nbytes = 2 * _plane_bytes(src, lay) + B * nb * (2 * NC + 6) * 4
     ops = B * (_search_area(w, h, nbh_l, nb, BW, BH)
                * (SAD_OPS * (NC + 9) + 28)
                + inframe * 14 * 14 * (8 * 10 + 20))
@@ -276,9 +304,10 @@ def work_hme_level(args):
     """(bytes, scalar ops) of one `refine_level` call: both planes, the
     candidates and the outputs; per block pixel SAD_OPS for each of NC
     candidates and 9 refine points."""
-    src2d, _ref, cmx, _cmy, _E, w, h, nbh_l, nb, BW, BH, _level = args
-    B, NC = src2d.shape[0], cmx.shape[-1]
-    nbytes = 2 * src2d.numel() + B * nb * (2 * NC + 3) * 4
+    src, _ref, lay, cmx, _cmy, nbh_l, nb, BW, BH, _level = args
+    w, h = lay.planes[0].w, lay.planes[0].h
+    B, NC = src.shape[0], cmx.shape[-1]
+    nbytes = 2 * _plane_bytes(src, lay) + B * nb * (2 * NC + 3) * 4
     return nbytes, (B * _search_area(w, h, nbh_l, nb, BW, BH) * SAD_OPS
                     * (NC + 9))
 
@@ -424,9 +453,9 @@ def base_plain(bargs):
     """refine_base_plain on hme_batch's `hme_base` arguments (candidates
     as one (B, nb, 2 NC) tensor)."""
     from dsv1_tpu_torch.ops import hme_kernels as hk
-    src2d, ref2d, cm, *rest = bargs
+    src, ref, lay, cm, *rest = bargs
     nc = cm.shape[-1] // 2
-    return hk.refine_base_plain(src2d, ref2d, cm[..., :nc], cm[..., nc:],
+    return hk.refine_base_plain(src, ref, lay, cm[..., :nc], cm[..., nc:],
                                 *rest)
 
 
@@ -454,17 +483,16 @@ def check_hme_edges(dev, seed):
     err_b = max_abs_err(hk.refine_base_cm(*bargs), base_plain(bargs))
     rng = np.random.default_rng(seed)
     B = bargs[0].shape[0]
-    fb = (*bargs[:2], *fuzz_cands(rng, dev, B, enc.nbh * enc.nbv, w, h),
-          *bargs[3:])
+    fb = (*bargs[:3], *fuzz_cands(rng, dev, B, enc.nbh * enc.nbv, w, h),
+          *bargs[4:])
     err_b = max(err_b, max_abs_err(hk.refine_base(*fb),
                                    hk.refine_base_plain(*fb)))
     for level in (1, enc.levels):
-        p = enc.layouts[level].planes[0]
         nbh_l = -(-enc.nbh // (1 << level))
         nb = nbh_l * -(-enc.nbv // (1 << level))
-        la = (cargs[0][level], cargs[1][level],
-              *fuzz_cands(rng, dev, B, nb, w, h), p.ext, p.w, p.h, nbh_l,
-              nb, enc.blk_w, enc.blk_h, level)
+        la = (cargs[0][level], cargs[1][level], enc.layouts[level],
+              *fuzz_cands(rng, dev, B, nb, w, h), nbh_l, nb, enc.blk_w,
+              enc.blk_h, level)
         err_c = max(err_c, max_abs_err(hk.refine_level(*la),
                                        hk.refine_level_plain(*la)))
     return err_c, err_b
@@ -732,15 +760,36 @@ def phase_edges(dev):
     return check_mc_formats(dev, 17)
 
 
-def predict_launches(stats, w: int, h: int) -> dict:
+def tiled_haar(cw: int, ch: int, D: int, first: int) -> int:
+    """`haar_fwd` launches of one forward transform of a (cw, ch) plane
+    (or a batch of them) in D column tiles (parallel/tile.py): per tile
+    one pyramid call for its levels first..m (m = the tiled levels), and
+    one for the gathered tail m+1.., each launching twice past
+    HAAR_TILE_LEVELS levels; with no tiled level, the untiled call."""
+    from dsv1_tpu_torch.ops import sbt
+    from dsv1_tpu_torch.parallel import tile
+
+    def call(lo, hi):
+        return (1 + (hi - lo + 1 > sbt.HAAR_TILE_LEVELS)) if lo <= hi else 0
+    lv = sbt.nlevels(cw, ch)
+    m = tile._tiled_levels(cw, ch, D) if D > 1 else 0
+    if m == 0:
+        return call(first, lv)
+    return D * call(first, m) + call(m + 1, lv)
+
+
+def predict_launches(stats, w: int, h: int, tiles: int = 1) -> dict:
     """Each kernel's launches on a path of one geometry, from what the
     path did (utils/stats.py STATS) and each wrapper's launches per call:
     `mc` one per call of the encode core on P frames (a frame, or the P
-    frames of one frame index of a chunk's GOPs) and one per P frame
-    predicted by the decoders, `haar_fwd` per call of the core one C
-    call for each plane with a Haar level (levels 1.. of a P plane, 2..
-    of an intra plane; the call covers the batch), which launches twice
-    past HAAR_TILE_LEVELS levels; per `hme_batch` call (one a chunk) at
+    frames of one frame index of a chunk's GOPs) and one per MC call of
+    the decoders (the P pictures of one frame index of a chunk of
+    chains, or a picture of the sequential Decoder), `haar_fwd` per call
+    of the core one C call for each plane with a Haar level (levels 1..
+    of a P plane, 2.. of an intra plane; the call covers the batch),
+    which launches twice past HAAR_TILE_LEVELS levels, or with `tiles`
+    column tiles (a gop x tile encode) `tiled_haar`'s count; per
+    `hme_batch` call (one a chunk) at
     effort 0 `hme_base` once and `hme_refine` levels + 1 times (a kernel
     per coarse level, then the candidates) at the auto pyramid depth,
     and per call at effort 1..3 `hme_refine` levels + 2 times (level 0
@@ -749,20 +798,15 @@ def predict_launches(stats, w: int, h: int) -> dict:
     from dsv1_tpu_torch.models.encoder import (auto_pyramid_levels,
                                                block_geometry, coef_geometry)
     from dsv1_tpu_torch.constants import SUBSAMP_420
-    from dsv1_tpu_torch.ops import sbt
     _bw, _bh, nbh, nbv = block_geometry(w, h)
     levels = auto_pyramid_levels(w, h, nbh, nbv)
     dims = coef_geometry(SUBSAMP_420, w, h, nbh, nbv)[1]
 
     def haar(first):
-        n = 0
-        for cw, ch in dims:
-            lv = sbt.nlevels(cw, ch)
-            if first <= lv:
-                n += 1 + (lv - first + 1 > sbt.HAAR_TILE_LEVELS)
-        return n
+        return sum(tiled_haar(cw, ch, tiles, first) for cw, ch in dims)
 
-    return {"mc": stats.get("core_calls_p", 0) + stats.get("decode_p", 0),
+    return {"mc": stats.get("core_calls_p", 0)
+            + stats.get("decode_p_calls", 0),
             "haar_fwd": stats.get("core_calls_i", 0) * haar(2)
             + stats.get("core_calls_p", 0) * haar(1),
             "hme_base": stats.get("hme_calls", 0),
@@ -772,10 +816,10 @@ def predict_launches(stats, w: int, h: int) -> dict:
             "hme_wide": stats.get("hme_calls_wide", 0)}
 
 
-def check_predicted(path, launches, stats, w, h):
+def check_predicted(path, launches, stats, w, h, tiles=1):
     """The path's launch counts equal predict_launches'; returns the
     prediction."""
-    want = predict_launches(stats, w, h)
+    want = predict_launches(stats, w, h, tiles)
     got = {k: launches.get(k, 0) for k in KERNELS}
     if got != want:
         raise AssertionError(f"{path}: launches {got}, predicted {want} "
@@ -1067,7 +1111,7 @@ def check_effort_kernels(dev, frames, seed):
     B = largs[0].shape[0]
     p = enc.layouts[0].planes[0]
     geo = (enc.nbh, enc.nbv, p.w, p.h, enc.blk_w, enc.blk_h)
-    fl = (*largs[:2], *edge_cands(rng, dev, B, *geo, p.ext), *largs[4:])
+    fl = (*largs[:3], *edge_cands(rng, dev, B, *geo, p.ext), *largs[5:])
     err_l = max(max_abs_err(hk.refine_level(*a), hk.refine_level_plain(*a))
                 for a in (largs, fl))
     err_w = 0
@@ -1603,6 +1647,292 @@ def phase_batches(dev, bound, smi, golden, clips):
     return errs, total
 
 
+MESH_ENTRIES = 2           # gop_mesh(["cuda:0"] * 2)
+TILE_ENTRIES = 4           # tile_mesh(["cuda:0"] * 4)
+LIMIT_GEOMETRY = (256, 192, 64, 6)   # w, h, block, pyramid levels
+
+
+def panned_pair(w, h, sx, sy, seed):
+    """Two 4:2:0 frames: a smooth textured scene, and the scene panned by
+    (sx, sy) pixels (grey chroma)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h + abs(sy), 0:w + abs(sx)].astype(np.float64)
+    scene = (128 + 60 * np.sin(x / 23 + 0.7 * np.sin(y / 31))
+             + 40 * np.cos(y / 17 - x / 41) + rng.normal(0, 4, x.shape))
+    scene = np.clip(scene, 0, 255).astype(np.uint8)
+    grey = np.full((h // 2, w // 2), 128, np.uint8)
+    return [(scene[oy:oy + h, ox:ox + w], grey, grey)
+            for oy, ox in ((max(-sy, 0), max(-sx, 0)),
+                           (max(sy, 0), max(sx, 0)))]
+
+
+def check_limit_hme(dev, seed):
+    """The level-0 search at the +-64 limit: a 64-pixel pan in both axes
+    at 64x64 blocks and 6 levels, both ways round (B = 2). `hme_batch`
+    on the card against the port on the CPU (plain versions, which
+    follow the JAX package's XLA route there:
+    tests/test_torch_effort.py) at effort 0 and 2; then kernel #3
+    (`refine_base_cm`) and kernel #2 at level 0 (`refine_level`) against
+    their plain versions on hme_batch's own arguments and on candidates
+    at the +-64 limits (`edge_cands`), `refine_wide` on its own `pre`
+    and on one at the edges of the 9-point search (`edge_pre`), and the
+    coarse call. Returns the largest error per kernel and of hme_batch."""
+    import numpy as np
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.models.encoder import make_prep, pyr_layouts
+    from dsv1_tpu_torch.ops import hme_kernels as hk
+    from dsv1_tpu_torch.ops.hme import hme_batch
+    from dsv1_tpu_torch.utils.edges import edge_cands, edge_pre
+    w, h, blk, levels = LIMIT_GEOMETRY
+    nbh, nbv = -(-w // blk), -(-h // blk)
+    pair = panned_pair(w, h, -64, -64, seed)
+    planes = [torch.from_numpy(np.stack([f[c] for f in pair]))
+              for c in range(3)]
+    prep = make_prep(dt.SUBSAMP_420, w, h, levels)
+    lays = pyr_layouts(dt.SUBSAMP_420, w, h, levels)
+    rng = np.random.default_rng(seed)
+    geo = (nbh, nbv, w, h, blk, blk)
+    errs = {"hme_batch": 0}
+    order = (torch.tensor([1, 0]), torch.tensor([0, 1]))
+
+    def err(name, a, b):
+        errs[name] = max(errs.get(name, 0), max_abs_err(a, b))
+
+    for effort in (0, 2):
+        out, calls = {}, []
+        for d in (dev, torch.device("cpu")):
+            imgs, _al = prep(tuple(p.to(d) for p in planes))
+            src, ref = ([a.index_select(0, o.to(d)) for a in imgs]
+                        for o in order)
+            out[d.type] = hme_batch(src, ref, lays, blk, blk, nbh, nbv,
+                                    dt.SUBSAMP_420, levels,
+                                    calls if d.type == "cuda" else None,
+                                    effort)
+        for k, v in out["cuda"].items():
+            err("hme_batch", v, out["cpu"][k].to(dev))
+        args = dict(calls)
+        err("hme_refine", hk.refine_coarse(*args["hme_coarse"]),
+            hk.refine_coarse_plain(*args["hme_coarse"]))
+        if effort == 0:
+            ba = args["hme_base"]
+            err("hme_base", hk.refine_base_cm(*ba), base_plain(ba))
+            fb = (*ba[:3], *edge_cands(rng, dev, 2, *geo, 64), *ba[4:])
+            err("hme_base", hk.refine_base(*fb), hk.refine_base_plain(*fb))
+        else:
+            la, wa = args["hme_level0"], args["hme_wide"]
+            fl = (*la[:3], *edge_cands(rng, dev, 2, *geo, 64), *la[5:])
+            for a in (la, fl):
+                err("hme_refine_level0", hk.refine_level(*a),
+                    hk.refine_level_plain(*a))
+            for pre in (wa[7], edge_pre(rng, dev, 2, *geo)):
+                a = (*wa[:7], pre, effort)
+                err("hme_wide", hk.refine_wide(*a), hk.refine_wide_plain(*a))
+    return errs
+
+
+def check_tiles(dev, frames, smi, tile_devs):
+    """`fwd_sbt_tiled`, `inv_sbt_tiled` and `encode_plane_tiled` over
+    tile_mesh(tile_devs) (["cuda:0"] * 4) on 1080p luma planes (an I plane: the
+    clip's first frame; a P plane: its difference to the next, centred)
+    against the untiled port functions on the card, with each call's
+    `haar_fwd` launches against `tiled_haar`'s prediction and the
+    tiled and untiled calls' times (CUDA events). Returns the largest
+    error."""
+    import numpy as np
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.kernels.build import LAUNCHES
+    from dsv1_tpu_torch.models.encoder import coef_geometry
+    from dsv1_tpu_torch.ops import hzcc, sbt
+    tm = dt.tile_mesh(tile_devs)
+    y0, y1 = (np.asarray(f[0], np.int32) for f in frames[:2])
+    H, W = y0.shape
+    nbh, nbv = -(-W // 64), -(-H // 48)
+    table = coef_geometry(dt.SUBSAMP_420, W, H, nbh, nbv)[2][0]
+    stable = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 4, nbh * nbv).astype(np.uint8)).to(dev)
+    worst = 0
+    for is_p, a_np in ((False, y0 - 128), (True, (y1 - y0).clip(-128, 127))):
+        a = torch.from_numpy(np.ascontiguousarray(a_np, np.int32)).to(dev)
+        tiles = dt.split_tiles(a, tm)
+        LAUNCHES.clear()
+        got = dt.fwd_sbt_tiled(tiles, is_p, tm)
+        torch.cuda.synchronize()
+        fwd_launches = LAUNCHES["haar_fwd"]
+        want_l = tiled_haar(W, H, len(tile_devs), 2 - is_p)
+        if fwd_launches != want_l or LAUNCHES["haar_fwd"] == 0:
+            raise AssertionError(f"tiled fwd_sbt launched haar_fwd "
+                                 f"{fwd_launches} times, predicted {want_l}")
+        want = sbt.fwd_sbt(a, is_p)
+        e = {"fwd": max_abs_err(dt.join_tiles(got), want)}
+        e["inv"] = max(max_abs_err(
+            dt.join_tiles(dt.inv_sbt_tiled(got, q, is_p, True, tm)),
+            sbt.inv_sbt(want, q, is_p, True)) for q in (137, 1024))
+        qv, dc, rec = dt.encode_plane_tiled(tiles, 512, is_p, 0, stable,
+                                            nbh, nbv, tm)
+        qv_w, wb = hzcc.encode_plane_core(want, 512, is_p, 0, stable, table)
+        e["plane"] = max(max_abs_err(qv, qv_w), max_abs_err(dc, want[0, 0]),
+                         max_abs_err(dt.join_tiles(rec),
+                                     sbt.inv_sbt(wb, 512, is_p, True)))
+        emit({"phase": "mesh", "check": "tiles", "plane": f"{W}x{H} luma "
+              f"{'P' if is_p else 'I'}",
+              "tiles": [str(d) for d in tile_devs],
+              "max_abs_err": e, "haar_fwd_launches_fwd": fwd_launches,
+              "haar_fwd_predicted": want_l, "haar_on_kernel": True,
+              "fwd_tiled_ms": cuda_ms(lambda: dt.fwd_sbt_tiled(
+                  tiles, is_p, tm), 5),
+              "fwd_ms": cuda_ms(lambda: sbt.fwd_sbt(a, is_p), 5),
+              "inv_tiled_ms": cuda_ms(lambda: dt.inv_sbt_tiled(
+                  got, 512, is_p, True, tm), 5),
+              "inv_ms": cuda_ms(lambda: sbt.inv_sbt(want, 512, is_p,
+                                                    True), 5),
+              "card": smi})
+        worst = max(worst, *e.values())
+    return worst
+
+
+def phase_mesh(dev, smi, golden, clips, cards=None):
+    """Phase 10: the batched decode, GOP meshes, column tiles and the
+    gop x tile encode, on mesh entries that share the one card (so only
+    the split, the carried state and the bytes are checked here, not
+    scaling). Step by step: `check_limit_hme`; `cif_batch`'s stream
+    decoded at the JAX rule's 4 chains a launch, against its golden
+    decode, with decode frames/s and `mc` launches and P pictures per
+    decoded frame; over gop_mesh(["cuda:0"] * 2) `cif_batch` encoded and
+    decoded, the `1080p` CRF clip and `1080p_gopabr_batch`'s clip at
+    -gopabr1's settings at 1 GOP a device (a chunk of 2 GOPs, the bytes
+    of 2 GOPs a chunk on one device, as in the JAX package), each
+    against its golden; `check_tiles`; gop_tile_mesh(1, 4) on the
+    `1080p` clip and (2, 2) on `cif`, against their goldens. Launches
+    equal predict_launches on every path. The mesh entries are the
+    `cards` in turn (one card, `dev`, by default; every visible card in
+    tools/torch_mesh_cards.py). Returns (the largest error per kernel,
+    the launches summed over the paths)."""
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.kernels.build import LAUNCHES
+    from dsv1_tpu_torch.utils.golden import decoded_bytes, encode_args
+    from dsv1_tpu_torch.utils.stats import STATS
+
+    t_phase = time.perf_counter()
+    cards = cards or [dev]
+
+    def since():
+        return time.perf_counter() - t_phase
+
+    def entries(k):
+        return [cards[i % len(cards)] for i in range(k)]
+
+    errs = check_limit_hme(dev, 21)
+    emit({"phase": "mesh", "check": "level0_limit",
+          "geometry": "x".join(map(str, LIMIT_GEOMETRY)),
+          "max_abs_err": errs, "card": smi, "phase_s": since()})
+    if any(errs.values()):
+        raise AssertionError(f"the search at the +-64 limit disagrees: "
+                             f"{errs}")
+    total = {}
+
+    def run(path, fn, w, h, kernels=BASE_PATH, tiles=1):
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        STATS.clear()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = dict(LAUNCHES)
+        check_launches(path, got, kernels)
+        check_predicted(path, got, STATS, w, h, tiles)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return secs, got, dict(STATS), result
+
+    def ok(name, gold, stream=None, dec=None):
+        res = {}
+        if stream is not None:
+            res["stream_sha256_ok"] = sha(stream) == gold["stream_sha256"]
+        if dec is not None:
+            res["decode_sha256_ok"] = (sha(decoded_bytes(dec))
+                                       == gold["decode_sha256"])
+        bad = [k for k, v in res.items() if not v]
+        if bad:
+            raise AssertionError(f"{name}: {bad} differ from the golden")
+        return res
+
+    # the batched decode at the JAX rule
+    gold = golden[BATCH_CLIP]
+    meta, cfg, kw = encode_args(BATCH_CLIP)
+    frames = clips[BATCH_CLIP][1]
+    w, h, n = gold["width"], gold["height"], gold["frames"]
+    stream = dt.encode_stream_gops(frames, meta, cfg, dev, **kw)
+    run("cif_batch decode (warm-up)", lambda: dt.decode_stream_gops(
+        stream, device=dev), w, h, ("mc",))
+    t_dec, l_dec, st, (_m, dec) = run("cif_batch decode", lambda: (
+        dt.decode_stream_gops(stream, device=dev)), w, h, ("mc",))
+    emit({"phase": "mesh", "clip": BATCH_CLIP, "path": "batched decode",
+          **ok(BATCH_CLIP, gold, dec=dec), "decode_fps": n / t_dec,
+          "mc_launches": l_dec.get("mc", 0),
+          "mc_launches_per_decoded_frame": l_dec.get("mc", 0) / n,
+          "p_pictures_per_mc_launch": st["decode_p"]
+          / max(st["decode_p_calls"], 1),
+          "chains_per_launch": 4, "launches_as_predicted": True,
+          "card": smi, "phase_s": since()})
+
+    # GOP meshes on the one card
+    gm = dt.gop_mesh(entries(MESH_ENTRIES))
+    for name, extra in ((BATCH_CLIP, {}), ("1080p", {}),
+                        (GOPABR_BATCH_CLIP, {"gops_per_device": 1})):
+        gold = golden[name]
+        meta, cfg, kw = encode_args(name)
+        kw = {**kw, **extra}
+        frames = clips[name][1]
+        w, h, n = gold["width"], gold["height"], gold["frames"]
+        t_enc, l_enc, st, stream = run(f"{name} mesh encode", lambda: (
+            dt.encode_stream_gops(frames, meta, cfg, mesh=gm, **kw)), w, h)
+        res = {"phase": "mesh", "clip": name,
+               "path": f"gop_mesh {[str(d) for d in gm.devices]}",
+               **ok(name, gold, stream), "encode_fps": n / t_enc,
+               "encode_launches": l_enc, "chunks": st["chunks"],
+               "stab_carried": st.get("stab_carried", 0),
+               "launches_as_predicted": True}
+        if name == BATCH_CLIP:
+            t_dec, l_dec, _st, (_m, dec) = run(
+                f"{name} mesh decode", lambda: dt.decode_stream_gops(
+                    stream, mesh=gm), w, h, ("mc",))
+            res.update(ok(name, gold, dec=dec), decode_fps=n / t_dec,
+                       decode_launches=l_dec)
+        emit({**res, "card": smi, "phase_s": since()})
+
+    tile_err = check_tiles(dev, clips["1080p"][1], smi,
+                           entries(TILE_ENTRIES))
+    if tile_err:
+        raise AssertionError(f"the tiled transforms disagree: {tile_err}")
+
+    for name, shape in (("1080p", (1, TILE_ENTRIES)), ("cif", (2, 2))):
+        gold = golden[name]
+        meta, cfg, kw = encode_args(name)
+        frames = clips[name][1]
+        w, h, n = gold["width"], gold["height"], gold["frames"]
+        mesh = dt.gop_tile_mesh(*shape, entries(shape[0] * shape[1]))
+        t_enc, l_enc, st, stream = run(f"{name} gop x tile encode", lambda: (
+            dt.encode_stream_gops(frames, meta, cfg, mesh=mesh, **kw)), w, h,
+            tiles=shape[1])
+        emit({"phase": "mesh", "clip": name,
+              "path": f"gop_tile_mesh{shape}",
+              "devices": [str(d) for d in mesh.devices.reshape(-1)],
+              **ok(name, gold, stream),
+              "encode_fps": n / t_enc, "encode_launches": l_enc,
+              "chunks": st["chunks"], "launches_as_predicted": True,
+              "card": smi, "phase_s": since()})
+    emit({"phase": "mesh", "launches": total, "seconds": since()})
+    return {**errs, "haar_fwd": tile_err}, total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1633,16 +1963,18 @@ def main():
     rows += effort_r
     batch_err, batch_l = phase_batches(dev, Bound(clock_hz), smi, golden,
                                        clips)
+    mesh_err, mesh_l = phase_mesh(dev, smi, golden, clips)
     for r in rows:
-        if r["name"] in batch_err:
-            r["max_abs_err"] = max(r["max_abs_err"], batch_err[r["name"]])
+        for errs in (batch_err, mesh_err):
+            if r["name"] in errs:
+                r["max_abs_err"] = max(r["max_abs_err"], errs[r["name"]])
     # every main path's launches; 4k_cli's level 0 is #4's work (the JAX
     # package's banded kernel), counted on its own row
     banded = cli_l["4k_cli"]["hme_base"]
     path_launches = {k: slice_l.get(k, 0) + seq_l.get(k, 0)
                      + sum(c.get(k, 0) for c in cli_l.values())
                      + effort_l.get(k, 0) + batch_l.get(k, 0)
-                     for k in KERNELS}
+                     + mesh_l.get(k, 0) for k in KERNELS}
     path_launches["hme_base"] -= banded
     path_launches["hme_base_banded"] = banded
     for r in rows:

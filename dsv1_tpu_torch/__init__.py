@@ -8,7 +8,11 @@ frame's quantized planes compacted on the device and each chunk of GOPs
 packed natively, the GOP-sharded encode across processes
 (`encode_stream_multihost`, `run_distributed_shard` on
 torch.distributed), its decode twin
-(`decode_stream_gops`, `iter_decode_gops`), the sequential,
+(`decode_stream_gops`, `iter_decode_gops`, several chains through each
+launch), both over a device mesh (`gop_mesh`, `gop_tile_mesh`: GOPs
+split over devices, each GOP's subband transforms in column tiles), the
+column-tiled transforms themselves (`tile_mesh`, `fwd_sbt_tiled`,
+`inv_sbt_tiled`, `encode_plane_tiled`), the sequential,
 resumable `Encoder` and `Decoder` (with the `draw_info` overlay) and the
 CLI (`python -m dsv1_tpu_torch.cli e|d`). Tensor work is PyTorch; the five
 per-block or per-level kernels of these paths (motion-compensated
@@ -34,10 +38,12 @@ from .models.metadata import Metadata
 from .models.decoder import (DEC_EOS, DEC_ERROR, DEC_GOT_META, DEC_OK,
                              Decoder)
 from .models.encoder import Encoder, EncoderConfig
-from .parallel import (EncodedShard, decode_stream_gops, encode_shard,
-                       encode_stream_gops, encode_stream_multihost,
-                       iter_decode_gops, mux_shards, run_distributed_shard,
-                       shard_ranges)
+from .parallel import (EncodedShard, Mesh, decode_stream_gops,
+                       encode_plane_tiled, encode_shard, encode_stream_gops,
+                       encode_stream_multihost, fwd_sbt_tiled, gop_mesh,
+                       gop_tile_mesh, inv_sbt_tiled, iter_decode_gops,
+                       join_tiles, mux_shards, run_distributed_shard,
+                       shard_ranges, split_tiles, tile_mesh)
 from .state import EncoderState, state_from_numpy
 
 __all__ = ["SUBSAMP_444", "SUBSAMP_422", "SUBSAMP_420", "SUBSAMP_411",
@@ -46,7 +52,9 @@ __all__ = ["SUBSAMP_444", "SUBSAMP_422", "SUBSAMP_420", "SUBSAMP_411",
            "state_from_numpy", "encode_stream_gops", "decode_stream_gops",
            "iter_decode_gops", "EncodedShard", "shard_ranges",
            "encode_shard", "mux_shards", "encode_stream_multihost",
-           "run_distributed_shard", "Encoder", "Decoder", "DEC_OK",
-           "DEC_ERROR", "DEC_EOS", "DEC_GOT_META"]
+           "run_distributed_shard", "Mesh", "gop_mesh", "gop_tile_mesh",
+           "tile_mesh", "fwd_sbt_tiled", "inv_sbt_tiled",
+           "encode_plane_tiled", "split_tiles", "join_tiles", "Encoder",
+           "Decoder", "DEC_OK", "DEC_ERROR", "DEC_EOS", "DEC_GOT_META"]
 
 __version__ = "0.1.0"

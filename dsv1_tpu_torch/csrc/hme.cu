@@ -18,8 +18,7 @@
 //     statistics with the reference's u32 wrap, the zero-MV intra test,
 //     the luma GO_INTRA cascade and the quadrant good/evil metric
 //     (hme.c:543-716). -> hme_base_kernel. The band exists on the TPU
-//     only to fit VMEM; with E = 64 its clamp never binds, so one kernel
-//     serves both.
+//     only to fit VMEM, so one kernel serves both.
 // and, with no Pallas kernel behind it, the XLA level 0 of effort 1..3
 // (the JAX package's refine_base with `pre`, dsv1_tpu/ops/hme.py:324-420,
 // after `_refine_kernel` at level 0 gives dx, dy, best): an exhaustive
@@ -63,16 +62,20 @@
 //   and diagonal planes, as the plain version's hu/h8/v8/d8); each warp
 //   sums two of the 8 points' SADs, and warp 0 alone takes the chosen
 //   window's statistics and writes the outputs.
-// - Window origins are clamped into the unpadded extended (EH, S) plane
-//   exactly as the Pallas bodies clamp (the C reference reads out of
-//   bounds there); picks are strict first minima in candidate order;
-//   unsigned arithmetic is plain uint32_t.
+// - Every window is read at its own origin from the flat image the
+//   (EH, S) plane lies in, as the JAX package's XLA search reads it (and
+//   as the C reference reads out of bounds, with no validity checks): a
+//   row past the right edge runs on into the next row, rows below the
+//   plane are the next plane's bytes. No origin is clamped (the Pallas
+//   bodies clamp into the extended plane, and so differ at the +-64
+//   limit). The wrappers check that no window can leave the image; a
+//   candidate outside the border-validity bounds is not read. Picks are
+//   strict first minima in candidate order; unsigned arithmetic is plain
+//   uint32_t.
 // - hme_wide_kernel stages the block as hme_base_kernel does and the
 //   (BH + 2R) x (BW + 2R) window around (dx, dy) in shared memory, read
-//   from the flat level-0 image as the JAX gather reads it (a row past
-//   the right edge runs on into the next row, rows below the plane are
-//   the chroma planes' bytes, offsets before the image clip to its first
-//   chunk): with 64-pixel blocks the window leaves the extended plane.
+//   from the flat level-0 image as the JAX gather reads it (offsets
+//   before the image or past its end clip to its first or last chunk).
 //   Each thread sums its word column against the 2R + 1 shifts of each
 //   offset row from 2 + R/2 words (funnel shifts), a warp sum per
 //   offset; the raster scan's strict first improvement is the least
@@ -113,7 +116,6 @@ constexpr int kMaxWpr = kMaxBlk / 4; // words per block row
 constexpr int kRows = kMaxBlk / (kNT / kMaxWpr);
 constexpr int kMaxNC = 6;            // zero MV + 5 parent candidates
 constexpr int kHP = 14;              // HP_SAD_SZ
-constexpr int kNB = 24;              // half-pel neighbourhood (its clamp)
 constexpr int kNU = 18;              // the part of it the filters read
 constexpr int kPS = 16;              // row stride of the filtered planes
 // the wide search's half-pel neighbourhood: its +-2-pixel grid and the
@@ -325,6 +327,15 @@ struct LevelArgs {
   int* field;                // (B, nb, 2) dx, dy << level, or null
 };
 
+// Whether the candidate window at (rx, ry) (level pixels) lies inside the
+// border-validity bounds (hme.c:512-517); only such windows are read.
+__device__ __forceinline__ bool cand_ok(int rx, int ry, const Block& b, int w,
+                                        int h) {
+  const int bnd = 64;  // FRAME_BORDER
+  return rx >= -bnd && ry >= -bnd && rx + b.bw_c <= w + bnd &&
+         ry + b.bh_c <= h + bnd && b.inframe;
+}
+
 // Strict first-minimum candidate pick over the reduced SADs, then the
 // full-pel clamp: the (dx, dy) the refine starts from, in level units.
 template <int N>
@@ -332,15 +343,12 @@ __device__ __forceinline__ void pick_cand(const unsigned (&sad)[N],
                                           const int* cand, int NC,
                                           int level, const Block& b, int w,
                                           int h, int& bdx, int& bdy) {
-  const int bnd = 64;  // FRAME_BORDER
   int bsad = kIntMax, bk = 0;
 #pragma unroll
   for (int k = 0; k < kMaxNC; ++k) {
     if (k >= NC) break;
-    const int rx = b.bx + (cand[k] >> level);
-    const int ry = b.by + (cand[NC + k] >> level);
-    const bool ok = rx >= -bnd && ry >= -bnd && rx + b.bw_c <= w + bnd &&
-                    ry + b.bh_c <= h + bnd && b.inframe;
+    const bool ok = cand_ok(b.bx + (cand[k] >> level),
+                            b.by + (cand[NC + k] >> level), b, w, h);
     const int s = ok ? (int)sad[k] : kIntMax;
     if (s < bsad) {
       bsad = s;
@@ -395,8 +403,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
   const Block b = block_of(t, a.nbh_l, a.BW, a.BH, a.w, a.h);
   const Lanes m = lanes_of(a.BW, b);
   unsigned s[R];
-  load_words(s, sp, a.S, clampi(a.E + b.by, 0, (a.EH - a.BH) & ~7),
-             clampi(a.E + b.bx, 0, a.S - a.BW), m);
+  load_words(s, sp, a.S, a.E + b.by, a.E + b.bx, m);
   stage_cands(a, bb, t, s_cand);
   __syncthreads();
 
@@ -404,18 +411,17 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
 #pragma unroll
   for (int k = 0; k < kMaxNC; ++k) {
     if (k >= a.NC) break;
-    sad[k] = window_sad(
-        rp, a.S, clampi(a.E + b.by + (s_cand[a.NC + k] >> a.level), 0,
-                        a.EH - a.BH),
-        clampi(a.E + b.bx + (s_cand[k] >> a.level), 0, a.S - a.BW), s, m);
+    const int rx = b.bx + (s_cand[k] >> a.level);
+    const int ry = b.by + (s_cand[a.NC + k] >> a.level);
+    if (cand_ok(rx, ry, b, a.w, a.h))
+      sad[k] = window_sad(rp, a.S, a.E + ry, a.E + rx, s, m);
   }
   block_sum_u(sad, red_c);
   int bdx, bdy;
   pick_cand(sad, s_cand, a.NC, a.level, b, a.w, a.h, bdx, bdy);
 
   unsigned a9[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-  refine9(rp, a.S, clampi(a.E + b.by + bdy - 1, 0, a.EH - (a.BH + 2)),
-          clampi(a.E + b.bx + bdx - 1, 0, a.S - (a.BW + 2)), s, m, a9);
+  refine9(rp, a.S, a.E + b.by + bdy - 1, a.E + b.bx + bdx - 1, s, m, a9);
   block_sum_u(a9, red_9);
   if (threadIdx.x != 0) return;
   int best, m9;
@@ -471,18 +477,15 @@ enum Sum { LS = kMaxNC, LSS, LSH, LSV, ZS, ZSS, G0, G1, G2, G3, E0, E1, E2,
 
 // Stages a block: its source and zero-MV words (s, z, and in shared
 // memory s_src, s_zero) and its 14x14 source centre s_c14, from the
-// (EH, S) planes sp and rp at origins clamped as the Pallas bodies clamp.
-// The caller synchronises.
+// (EH, S) planes sp and rp. The caller synchronises.
 template <int R>
 __device__ __forceinline__ void stage_block(
-    const uint8_t* sp, const uint8_t* rp, int S, int E, int EH, int BW,
+    const uint8_t* sp, const uint8_t* rp, int S, int E, int BW,
     int BH, const Block& b, const Lanes& m, unsigned (&s)[R],
     unsigned (&z)[R], unsigned* s_src, unsigned* s_zero, uint8_t* s_c14) {
   const int wpr = BW >> 2;
-  const int zr = clampi(E + b.by, 0, (EH - BH) & ~7);
-  const int zc = clampi(E + b.bx, 0, S - BW);
-  load_words(s, sp, S, zr, zc, m);
-  load_words(z, rp, S, zr, zc, m);
+  load_words(s, sp, S, E + b.by, E + b.bx, m);
+  load_words(z, rp, S, E + b.by, E + b.bx, m);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = m.r0 + i * m.step;
@@ -493,8 +496,7 @@ __device__ __forceinline__ void stage_block(
   }
   const int cx = b.bx + (b.bw_c >> 1) - kHP / 2;
   const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
-  const uint8_t* c14 = sp + (int64_t)clampi(E + cy, 0, EH - kHP) * S +
-                       clampi(E + cx, 0, S - kHP);
+  const uint8_t* c14 = sp + (int64_t)(E + cy) * S + E + cx;
   for (int p = threadIdx.x; p < kHP * kHP; p += kNT) {
     const int i = p / kHP;
     s_c14[p] = __ldg(c14 + (int64_t)i * S + p - i * kHP);
@@ -727,7 +729,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
   __shared__ unsigned red1[N1 * kW], red2[10 * kW];
   __shared__ int s_cand[2 * kMaxNC], s_a8[8];
   const int t = blockIdx.x, bb = blockIdx.y, tid = threadIdx.x;
-  const int S = a.S, E = a.E, EH = a.EH, BW = a.BW, BH = a.BH, NC = a.NC;
+  const int S = a.S, E = a.E, BW = a.BW, BH = a.BH, NC = a.NC;
   const uint8_t* sp = a.src + bb * a.pstride;
   const uint8_t* rp = a.ref + bb * a.pstride;
   const Block b = block_of(t, a.nbh_l, BW, BH, a.w, a.h);
@@ -735,7 +737,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
 
   // --- stage: source and zero-MV windows (words), 14x14 centre, cands
   unsigned s[R], z[R];
-  stage_block(sp, rp, S, E, EH, BW, BH, b, m, s, z, s_src, s_zero, s_c14);
+  stage_block(sp, rp, S, E, BW, BH, b, m, s, z, s_src, s_zero, s_c14);
   if (tid < NC) {
     const int* c = a.cm + ((int64_t)bb * a.nb + t) * 2 * NC;
     s_cand[tid] = c[tid];
@@ -750,8 +752,9 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
 #pragma unroll
   for (int k = 0; k < kMaxNC; ++k) {
     if (k >= NC) break;
-    v[k] = window_sad(rp, S, clampi(E + b.by + s_cand[NC + k], 0, EH - BH),
-                      clampi(E + b.bx + s_cand[k], 0, S - BW), s, m);
+    const int rx = b.bx + s_cand[k], ry = b.by + s_cand[NC + k];
+    if (cand_ok(rx, ry, b, a.w, a.h))
+      v[k] = window_sad(rp, S, E + ry, E + rx, s, m);
   }
   block_sums(v, s, z, m, b, BW, s_src, s_zero, s_c14);
   block_sum_u(v, red1);
@@ -763,8 +766,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
   const int area = max(yarea, 1);
   const int ravg0 = (int)v[ZS] / area;
   unsigned v2[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-  refine9(rp, S, clampi(E + b.by + bdy - 1, 0, EH - (BH + 2)),
-          clampi(E + b.bx + bdx - 1, 0, S - (BW + 2)), s, m, v2);
+  refine9(rp, S, E + b.by + bdy - 1, E + b.bx + bdx - 1, s, m, v2);
   v2[9] = intra_fails(s, m, ravg0);
   block_sum_u(v2, red2);
   int best, m9;
@@ -774,9 +776,8 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
   // --- half-pel refine (hme.c:543-597): filter the neighbourhood once
   const int cx = b.bx + (b.bw_c >> 1) - kHP / 2;
   const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
-  filter_nb<kNU, kPS>(rp, S, clampi(E + cy + dy - 2, 0, EH - kNB),
-                      clampi(E + cx + dx - 2, 0, S - kNB), s_nb, s_hu, s_h8,
-                      s_v8, s_d8);
+  filter_nb<kNU, kPS>(rp, S, E + cy + dy - 2, E + cx + dx - 2, s_nb, s_hu,
+                      s_h8, s_v8, s_d8);
   const int lane = tid & 31, wid = tid >> 5;
   for (int k = wid; k < 8; k += kW) {
     int ws;
@@ -861,7 +862,7 @@ __global__ void __launch_bounds__(kNT, kWideMinBlocks)
   __shared__ int s_a[kPts];
   const int t = blockIdx.x, bb = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, wid = tid >> 5;
-  const int S = a.S, E = a.E, EH = a.EH, BW = a.BW, BH = a.BH;
+  const int S = a.S, E = a.E, BW = a.BW, BH = a.BH;
   const uint8_t* sf = a.src + bb * a.pstride;
   const uint8_t* rf = a.ref + bb * a.pstride;
   const int64_t start = a.org - (int64_t)E * S - E;  // the (EH, S) plane
@@ -875,7 +876,7 @@ __global__ void __launch_bounds__(kNT, kWideMinBlocks)
   // --- stage: the block as hme_base_kernel does, and the (BH + 2 kR) x
   // (BW + 2 kR) window around (dx0, dy0) from the flat image
   unsigned s[R], z[R];
-  stage_block(sp, rp, S, E, EH, BW, BH, b, m, s, z, s_src, s_zero, s_c14);
+  stage_block(sp, rp, S, E, BW, BH, b, m, s, z, s_src, s_zero, s_c14);
   {
     const int64_t f0 = a.org + (int64_t)(b.by + dy0 - kR) * S +
                        (b.bx + dx0 - kR);
@@ -956,9 +957,8 @@ __global__ void __launch_bounds__(kNT, kWideMinBlocks)
   // before the centre window
   const int cx = b.bx + (b.bw_c >> 1) - kHP / 2;
   const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
-  filter_nb<kNUW, kPSW>(rp, S, clampi(E + cy + dy - 3, 0, EH - kNB),
-                        clampi(E + cx + dx - 3, 0, S - kNB), s_nb, s_hu,
-                        s_h8, s_v8, s_d8);
+  filter_nb<kNUW, kPSW>(rp, S, E + cy + dy - 3, E + cx + dx - 3, s_nb,
+                        s_hu, s_h8, s_v8, s_d8);
   for (int k = wid; k < kPts; k += kW) {
     const int g = k < kPts / 2 ? k : k + 1;
     int ws;

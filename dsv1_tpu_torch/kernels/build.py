@@ -6,7 +6,9 @@ library with a plain C interface, under `build/torch_kernels/` of the
 checkout, named by a hash of the sources (a changed source builds
 anew). The library is loaded with ctypes: pointers and the stream go as
 `c_void_p`, ints as `c_int`/`c_int64`. Each C entry point returns
-`cudaGetLastError()` after its launch; `check()` raises if it is not 0.
+`cudaGetLastError()` after its launch; the wrappers call them through
+`launch()`, which makes the tensors' device current around the call
+and raises if the code is not 0.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -111,7 +113,14 @@ def check(err: int, name: str):
                            f"cudaError {err}")
 
 
-def stream_ptr(t) -> int:
-    """The current CUDA stream of tensor t's device, as an int."""
+def launch(name: str, t, *args):
+    """Calls the library's entry point `name` on args and the current
+    stream of tensor t's device, with t's device made current around the
+    call (a ctypes call launches on the host thread's current device,
+    whatever device its pointers are on); raises if the launch
+    failed."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    with torch.cuda.device(t.device):
+        err = getattr(lib(), name)(
+            *args, torch.cuda.current_stream(t.device).cuda_stream)
+    check(err, name)

@@ -150,7 +150,7 @@ def coef_geometry(subsamp: int, w: int, h: int, nbh: int, nbv: int):
 
 def make_encode_core_traced(subsamp: int, w: int, h: int, blk_w: int,
                             blk_h: int, nbh: int, nbv: int,
-                            want_recon: bool = True):
+                            want_recon: bool = True, tile_hook=None):
     """f(input_img, ref_recon_img, is_p, quant, stable_blocks, modes, mvx,
     mvy, submask) -> (qvals per plane, dcs per plane, recon image).
 
@@ -160,8 +160,13 @@ def make_encode_core_traced(subsamp: int, w: int, h: int, blk_w: int,
     (the frame type is known on the host); the prediction is built only
     for P frames. Without `want_recon` the inverse transform and the
     residual add are skipped and the recon image is None (gop 0: no
-    frame is a reference)."""
+    frame is a reference). tile_hook, if given (parallel/tile.py
+    `tile_hook`, the JAX core's `tile_hook`), runs the forward and
+    inverse subband transforms in column tiles over a gop x tile mesh
+    row's devices; everything else stays on the frame's device."""
     layout, coef_dims, tables = coef_geometry(subsamp, w, h, nbh, nbv)
+    fwd_sbt = sbt.fwd_sbt if tile_hook is None else tile_hook.fwd
+    inv_sbt = sbt.inv_sbt if tile_hook is None else tile_hook.inv
 
     def f(input_img, ref_recon_img, is_p: bool, quant: int, stable_blocks,
           modes, mvx, mvy, submask):
@@ -194,14 +199,14 @@ def make_encode_core_traced(subsamp: int, w: int, h: int, blk_w: int,
                 # p2sbc reads the replicated border column (original edge)
                 coefs[:, :p.h, p.w:cw] = \
                     src_ext[:, :p.h, p.w:cw].to(torch.int32) - 128
-            coefs = sbt.fwd_sbt(coefs, is_p)
+            coefs = fwd_sbt(coefs, is_p)
             qv, wb = hzcc.encode_plane_core(coefs, quant, is_p, c,
                                             stable_blocks, tables[c])
             qvals.append(qv)
             dcs.append(coefs[:, 0, 0])
             if not want_recon:
                 continue
-            rp = sbt.coefs_to_plane(sbt.inv_sbt(
+            rp = sbt.coefs_to_plane(inv_sbt(
                 wb, quant, is_p, is_luma=(c == 0)))[:, :p.h, :p.w]
             if is_p:
                 rp = bmc.add_residual(pred, rp)

@@ -40,11 +40,23 @@ def round8(v):
     return sym_round_shift(v, 4, 3)
 
 
-def lb2(n: int) -> int:
-    """dsv_lb2: smallest k such that (1 << k) >= n (hzcc.c:437-447)."""
+def lb2(n):
+    """dsv_lb2: smallest k such that (1 << k) >= n (hzcc.c:437-447), of a
+    python int or, elementwise, of an integer tensor (n < 2^31): the
+    count of powers of two below n."""
+    if isinstance(n, torch.Tensor):
+        return sum((n > (1 << j)).to(n.dtype) for j in range(31))
     k, i = 0, 1
     while i < n:
         i <<= 1
         k += 1
     return k
+
+
+def cdiv(a, b: int):
+    """C `/` of a python int, or elementwise of an integer tensor, by a
+    python int."""
+    if isinstance(a, torch.Tensor):
+        return trunc_div(a, b)
+    return tdiv(a, b)
 

@@ -21,14 +21,6 @@ from . import hme_kernels as hk
 from .cint import U32
 from .frame import FrameLayout, plane_view
 
-def _lvl2d(flats, layout: FrameLayout):
-    """(B, flat) -> (B, EH, S) extended luma plane views."""
-    p = layout.planes[0]
-    start = layout.margin + p.offset - p.ext * p.stride - p.ext
-    EH = p.h + 2 * p.ext
-    return flats[:, start:start + EH * p.stride].reshape(
-        flats.shape[0], EH, p.stride)
-
 
 def _block_sqrvar_dense(imgs, layout: FrameLayout, c: int, cbw: int,
                         cbh: int, nbh: int, nbv: int, ccw, cch):
@@ -135,24 +127,21 @@ def hme_batch(src_flats, ref_flats, layouts, blk_w: int, blk_h: int,
     full-pel window, half-pel grid and luma cascade.
     When `calls` is a list, each kernel call's (name, args) is appended
     to it, so a caller can rerun a kernel on exactly these arguments."""
-    src2d = [_lvl2d(src_flats[lv], layouts[lv]) for lv in range(levels + 1)]
-    ref2d = [_lvl2d(ref_flats[lv], layouts[lv]) for lv in range(levels + 1)]
-    cargs = (src2d, ref2d, layouts, blk_w, blk_h, nbh, nbv, levels)
+    cargs = (src_flats, ref_flats, layouts, blk_w, blk_h, nbh, nbv, levels)
     if calls is not None:
         calls.append(("hme_coarse", cargs))
     cm = hk.refine_coarse(*cargs)
-    p = layouts[0].planes[0]
     nb = nbh * nbv
     if effort == 0:
-        args = (src2d[0], ref2d[0], cm, p.ext, p.w, p.h, nbh, nb, blk_w,
+        args = (src_flats[0], ref_flats[0], layouts[0], cm, nbh, nb, blk_w,
                 blk_h)
         if calls is not None:
             calls.append(("hme_base", args))
         kouts = hk.refine_base_cm(*args)
     else:
         nc = cm.shape[-1] // 2
-        args = (src2d[0], ref2d[0], cm[..., :nc], cm[..., nc:], p.ext, p.w,
-                p.h, nbh, nb, blk_w, blk_h, 0)
+        args = (src_flats[0], ref_flats[0], layouts[0], cm[..., :nc],
+                cm[..., nc:], nbh, nb, blk_w, blk_h, 0)
         if calls is not None:
             calls.append(("hme_level0", args))
         pre = hk.refine_level(*args)

@@ -26,15 +26,21 @@ Replaces the Pallas kernels of dsv1_tpu/ops/pallas_hme.py:
   +-2 effort full-pel window, a +-(1 + effort) half-pel grid in place
   of the 8 neighbours, then `refine_base`'s luma cascade.
 
-Windows are read from the unpadded extended (EH, S) plane with every
-origin clamped into it, as the Pallas bodies do (the C reference reads
-out of bounds there); only `refine_wide`'s full-pel window, which the
-JAX package reads from the flat image, is read from it the same way
-(`flat_windows_clipped`). The kernels (csrc/hme.cu) read pixels four to a
-32-bit word, so their wrappers require word-aligned planes, strides,
-borders and block widths, and raise otherwise. The wrappers take the
-plain version for CPU tensors and launch the kernels for CUDA tensors;
-there is no fallback.
+Every function takes the flat images of its level, (B, n) u8, and the
+level's FrameLayout, and reads every window from the flat image at its
+own origin, as the JAX package's XLA search (`_refine_common`, the CPU
+route, which wrote the goldens) reads it: a row past the right edge runs
+on into the next row, rows below the luma plane are the chroma planes'
+bytes, and offsets before the image or past its end clip to its first
+or last chunk (`flat_windows_clipped`). The Pallas bodies clamp each
+origin into the extended plane instead, so at the +-64 level-0 limit
+the JAX package's TPU route differs from its CPU route; the port follows
+the CPU route. The kernels (csrc/hme.cu) read pixels four to a 32-bit
+word, so their wrappers require word-aligned images, strides, borders
+and block widths, and check that no window can leave the image (it
+cannot in any layout of `frame.make_layout`); they raise otherwise. The
+wrappers take the plain version for CPU tensors and launch the kernels
+for CUDA tensors; there is no fallback.
 """
 
 import ctypes
@@ -45,7 +51,7 @@ import torch
 from ..constants import FRAME_BORDER
 
 from .cint import U32
-from .frame import flat_windows
+from .frame import FrameLayout
 
 # search point tables (hme.c:422-427, 27-30)
 XF = (0, 1, -1, 0, 0, -1, 1, -1, 1)
@@ -73,15 +79,16 @@ def _s32(x):
 
 class _Grid:
     """Per-block geometry of one level (block t at grid (t % nbh_l,
-    t // nbh_l)) and a window gatherer over the batch of planes."""
+    t // nbh_l)) and a window gatherer over the batch of flat images."""
 
-    def __init__(self, src2d, ref2d, E, w, h, nbh_l, nb, BW, BH):
-        B, EH, S = src2d.shape
-        dev = src2d.device
-        self.B, self.EH, self.S, self.E = B, EH, S, E
-        self.w, self.h, self.BW, self.BH = w, h, BW, BH
-        self.src = src2d.reshape(B, -1).contiguous().reshape(-1)
-        self.ref = ref2d.reshape(B, -1).contiguous().reshape(-1)
+    def __init__(self, src_flat, ref_flat, layout, nbh_l, nb, BW, BH):
+        p = layout.planes[0]
+        dev = src_flat.device
+        self.B = src_flat.shape[0]
+        self.S, self.org = p.stride, layout.margin + p.offset
+        self.w, self.h, self.BW, self.BH = p.w, p.h, BW, BH
+        w, h = p.w, p.h
+        self.src, self.ref = src_flat, ref_flat
         t = torch.arange(nb, device=dev)
         self.bx = (t % nbh_l) * BW
         self.by = torch.div(t, nbh_l, rounding_mode="floor") * BH
@@ -92,19 +99,17 @@ class _Grid:
         rows = torch.arange(BH, device=dev)[None, :, None]
         self.mask = ((cols < self.bw_c[:, None, None])    # (nb, BH, BW)
                      & (rows < self.bh_c[:, None, None]))
-        self.boff = (torch.arange(B, device=dev) * (EH * S))[:, None]
 
-    def win(self, plane, rr, cc, H, W):
-        """(B, nb, H, W) int32 windows at origins (rr, cc), (B, nb)."""
-        base = self.boff + rr.to(torch.int64) * self.S + cc
-        return flat_windows(plane, base, H, W, self.S).to(torch.int32)
+    def win(self, flat, y, x, H, W):
+        """(B, nb, H, W) int32 windows at frame coordinates (y, x), each
+        (nb,) or (B, nb), read from the flat images as the JAX gather
+        reads them."""
+        base = self.org + y.to(torch.int64) * self.S + x
+        return flat_windows_clipped(flat, base.expand(self.B, -1), H, W,
+                                    self.S)
 
     def srcw(self):
-        E, BH, BW = self.E, self.BH, self.BW
-        rr = (E + self.by).clamp(0, (self.EH - BH) & ~7)
-        cc = (E + self.bx).clamp(0, self.S - BW)
-        return self.win(self.src, rr.expand(self.B, -1),
-                        cc.expand(self.B, -1), BH, BW)
+        return self.win(self.src, self.by, self.bx, self.BH, self.BW)
 
     def sad(self, a, b):
         d = (a - b).abs()
@@ -115,7 +120,7 @@ def _search(g: _Grid, cm, NC: int, level: int, srcw):
     """Candidate SADs + first-minimum pick + full-pel clamp + 9-point
     refine. Returns (dx, dy, best) in level units, each (B, nb)."""
     b = FRAME_BORDER
-    E, BW, BH, w, h = g.E, g.BW, g.BH, g.w, g.h
+    BW, BH, w, h = g.BW, g.BH, g.w, g.h
     bsad = torch.full_like(g.bx.expand(g.B, -1), IMAX)
     bk = torch.zeros_like(bsad)
     for k in range(NC):
@@ -123,8 +128,7 @@ def _search(g: _Grid, cm, NC: int, level: int, srcw):
         ry = g.by + (cm[..., NC + k] >> level)
         ok = ((rx >= -b) & (ry >= -b) & (rx + g.bw_c <= w + b)
               & (ry + g.bh_c <= h + b) & g.inframe)
-        refw = g.win(g.ref, (E + ry).clamp(0, g.EH - BH),
-                     (E + rx).clamp(0, g.S - BW), BH, BW)
+        refw = g.win(g.ref, ry, rx, BH, BW)
         sad = torch.where(ok, g.sad(srcw, refw), IMAX)
         take = sad < bsad
         bk = torch.where(take, k, bk)
@@ -134,9 +138,7 @@ def _search(g: _Grid, cm, NC: int, level: int, srcw):
     bdx = torch.minimum(torch.maximum(bdx, -g.bw_c - g.bx), w - g.bx)
     bdy = torch.minimum(torch.maximum(bdy, -g.bh_c - g.by), h - g.by)
 
-    rr = (E + g.by + bdy - 1).clamp(0, g.EH - (BH + 2))
-    cc = (E + g.bx + bdx - 1).clamp(0, g.S - (BW + 2))
-    padw = g.win(g.ref, rr, cc, BH + 2, BW + 2)
+    padw = g.win(g.ref, g.by + bdy - 1, g.bx + bdx - 1, BH + 2, BW + 2)
     best = torch.full_like(bsad, IMAX)
     m9 = torch.zeros_like(bsad)
     for k in range(9):
@@ -155,10 +157,11 @@ def _cands(cmx, cmy):
     return torch.cat([cmx, cmy], dim=-1).to(torch.int32).contiguous()
 
 
-def refine_level_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH,
-                       level):
-    """Plain form of `_refine_kernel`: (dx, dy, best), each (B, nb)."""
-    g = _Grid(src2d, ref2d, E, w, h, nbh_l, nb, BW, BH)
+def refine_level_plain(src_flat, ref_flat, layout, cmx, cmy, nbh_l, nb, BW,
+                       BH, level):
+    """Plain form of `_refine_kernel` with the XLA search's reads: (dx,
+    dy, best), each (B, nb)."""
+    g = _Grid(src_flat, ref_flat, layout, nbh_l, nb, BW, BH)
     cm = _cands(cmx, cmy)
     return _search(g, cm, cmx.shape[-1], level, g.srcw())
 
@@ -207,17 +210,17 @@ def refine_coarse_plain(src_levels, ref_levels, layouts, blk_w, blk_h, nbh,
         step, ii, jj = _lvl_grid(level, nbh, nbv)
         nbh_l, nbv_l = len(ii), len(jj)
         nb = nbh_l * nbv_l
-        src2d, ref2d = src_levels[level], ref_levels[level]
-        B = src2d.shape[0]
-        dev = src2d.device
+        B = src_levels[level].shape[0]
+        dev = src_levels[level].device
         if mvf is None:
             cmx = torch.zeros((B, nb, 1), dtype=torch.int32, device=dev)
             cmy = cmx
         else:
             cmx, cmy = _build_cands_batched(level, mvf, nbh, nbv)
         p = lay.planes[0]
-        dx, dy, _ = refine_level_plain(src2d, ref2d, cmx, cmy, p.ext, p.w,
-                                       p.h, nbh_l, nb, blk_w, blk_h, level)
+        dx, dy, _ = refine_level_plain(src_levels[level], ref_levels[level],
+                                       lay, cmx, cmy, nbh_l, nb, blk_w,
+                                       blk_h, level)
         # block origin in level coords is (grid index * blk) >> level
         infr = torch.as_tensor(
             ((((ii * blk_w) >> level)[None, :] < p.w)
@@ -253,10 +256,11 @@ def _texture14(a):
     return tex, avg, var
 
 
-def refine_base_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
-    """Plain form of `_base_kernel`: (mvx, mvy, flags, qbits, luma_tex,
-    src_var), each (B, nb) int32."""
-    g = _Grid(src2d, ref2d, E, w, h, nbh_l, nb, BW, BH)
+def refine_base_plain(src_flat, ref_flat, layout, cmx, cmy, nbh_l, nb, BW,
+                      BH):
+    """Plain form of `_base_kernel` with the XLA search's reads: (mvx,
+    mvy, flags, qbits, luma_tex, src_var), each (B, nb) int32."""
+    g = _Grid(src_flat, ref_flat, layout, nbh_l, nb, BW, BH)
     cm = _cands(cmx, cmy)
     srcw = g.srcw()
     dx, dy, best = _search(g, cm, cmx.shape[-1], 0, srcw)
@@ -282,8 +286,7 @@ def _luma_tail(g: _Grid, srcw, dx, dy, best, xh_pts, yh_pts, pad: int):
     metric. The half-pel neighbourhood starts 2 + pad pixels before the
     full-pel centre window (pad 1 covers the +-2-pixel grid of effort 3).
     Returns (mvx, mvy, flags, qbits, luma_tex, src_var), (B, nb) int32."""
-    E, BW, BH = g.E, g.BW, g.BH
-    S, EH = g.S, g.EH
+    BW, BH = g.BW, g.BH
     i64 = torch.int64
     best = best.to(i64)
 
@@ -292,13 +295,9 @@ def _luma_tail(g: _Grid, srcw, dx, dy, best, xh_pts, yh_pts, pad: int):
     yareasq = yarea * yarea
     cx = g.bx + (g.bw_c >> 1) - HP // 2
     cy = g.by + (g.bh_c >> 1) - HP // 2
-    srcw14 = g.win(g.src, (E + cy).clamp(0, EH - HP).expand(g.B, -1),
-                   (E + cx).clamp(0, S - HP).expand(g.B, -1), HP, HP)
-    A = cx + dx
-    Bc = cy + dy
+    srcw14 = g.win(g.src, cy, cx, HP, HP)
     o = 2 + pad
-    nb_ = g.win(g.ref, (E + Bc - o).clamp(0, EH - NB_W),
-                (E + A - o).clamp(0, S - NB_W), NB_W, NB_W)
+    nb_ = g.win(g.ref, cy + dy - o, cx + dx - o, NB_W, NB_W)
     hu = 9 * (nb_[..., :, 1:-2] + nb_[..., :, 2:-1]) \
         - (nb_[..., :, :-3] + nb_[..., :, 3:])
     h8 = ((hu + 8) >> 4).clamp(0, 255)
@@ -366,9 +365,7 @@ def _luma_tail(g: _Grid, srcw, dx, dy, best, xh_pts, yh_pts, pad: int):
     lo_var = (yareasq.to(i64) > luma_var) & g.inframe
 
     # zero-MV window: zvar + block_intra_test (hme.c:143-178,653)
-    zerow = g.win(g.ref,
-                  (E + g.by).clamp(0, (EH - BH) & ~7).expand(g.B, -1),
-                  (E + g.bx).clamp(0, S - BW).expand(g.B, -1), BH, BW)
+    zerow = g.win(g.ref, g.by, g.bx, BH, BW)
     zu = torch.where(mm, zerow, 0).to(i64)
     z_s = zu.sum(dim=(-2, -1))
     z_ss = (zu * zu).sum(dim=(-2, -1))
@@ -453,19 +450,6 @@ def flat_windows_clipped(flat, base, H: int, W: int, S: int):
     return flat.reshape(-1)[idx].to(torch.int32)
 
 
-def _wide_geometry(src_flat, ref_flat, layout):
-    """(the (B, EH, S) luma plane views of the flat level-0 images, the
-    flat offset of frame pixel (0, 0), the plane's geometry)."""
-    p = layout.planes[0]
-    org = layout.margin + p.offset
-    EH = p.h + 2 * p.ext
-    start = org - p.ext * p.stride - p.ext
-    B = src_flat.shape[0]
-    views = [f[:, start:start + EH * p.stride].reshape(B, EH, p.stride)
-             for f in (src_flat, ref_flat)]
-    return views, org, p
-
-
 def refine_wide_plain(src_flat, ref_flat, layout, nbh_l, nb, BW, BH, pre,
                       effort):
     """Plain form of level 0 at effort > 0 (the JAX package's refine_base
@@ -475,19 +459,14 @@ def refine_wide_plain(src_flat, ref_flat, layout, nbh_l, nb, BW, BH, pre,
     2 effort, scanned raster over (oy, ox) without the centre, a move
     taken only on a strict improvement; then the half-pel grid of
     +-(1 + effort) and the luma cascade of `refine_base_plain`.
-    src_flat/ref_flat: (B, n) u8 flat level-0 images; the wide window is
-    read from them as the JAX package reads it (`flat_windows_clipped`),
-    the windows inside the extended plane from its (EH, S) view, as
-    `refine_base_plain` reads them. Returns (mvx, mvy, flags, qbits,
-    luma_tex, src_var), each (B, nb) int32."""
-    (src2d, ref2d), org, p = _wide_geometry(src_flat, ref_flat, layout)
-    g = _Grid(src2d, ref2d, p.ext, p.w, p.h, nbh_l, nb, BW, BH)
+    src_flat/ref_flat: (B, n) u8 flat level-0 images. Returns (mvx, mvy,
+    flags, qbits, luma_tex, src_var), each (B, nb) int32."""
+    g = _Grid(src_flat, ref_flat, layout, nbh_l, nb, BW, BH)
     srcw = g.srcw()
     dx0, dy0, best = (t.to(torch.int64) for t in pre)
     R = 2 * effort
-    padw = flat_windows_clipped(
-        ref_flat, org + (g.by + dy0 - R) * p.stride + g.bx + dx0 - R,
-        BH + 2 * R, BW + 2 * R, p.stride)
+    padw = g.win(g.ref, g.by + dy0 - R, g.bx + dx0 - R, BH + 2 * R,
+                 BW + 2 * R)
     dx, dy = dx0, dy0
     for oy in range(2 * R + 1):
         for ox in range(2 * R + 1):
@@ -501,48 +480,65 @@ def refine_wide_plain(src_flat, ref_flat, layout, nbh_l, nb, BW, BH, pre,
     return _luma_tail(g, srcw, dx, dy, best, *_hp_grid(effort), 1)
 
 
-def _check_planes(src2d, ref2d, E, BW):
-    """The layout the kernels read: (B, EH, S) uint8 planes with
-    contiguous rows, pixels loaded four to an aligned word (so the
-    source window of every block starts on a word)."""
-    for t in (src2d, ref2d):
-        if t.dtype != torch.uint8 or t.dim() != 3 or t.stride(2) != 1 \
-                or t.stride(1) != t.shape[2]:
-            raise ValueError("planes must be (B, EH, S) uint8 with "
-                             "contiguous rows")
+def _planes(src_flat, ref_flat, layout: FrameLayout, BW: int, BH: int):
+    """The kernels' view of a level's flat images: (src, ref) pointers to
+    the (EH, S) luma planes of pair 0, the bytes between pairs, EH, S, E,
+    w, h. Checks the layout the kernels read (uint8 images of the
+    layout's size with contiguous rows, pixels loaded four to an aligned
+    word) and that every window a search reads lies inside its image:
+    the candidate windows inside the border-validity bounds, the 9-point
+    windows (rows from -(BH + 1) before the frame), the half-pel
+    neighbourhoods and the words around them."""
+    p = layout.planes[0]
+    n = layout.total + 2 * layout.margin
+    for t in (src_flat, ref_flat):
+        if t.dtype != torch.uint8 or t.dim() != 2 or t.stride(1) != 1 \
+                or t.shape[1] != n:
+            raise ValueError("images must be (B, n) uint8 flat images of the "
+                             "layout, with contiguous rows")
         if t.data_ptr() % 4 or t.stride(0) % 4:
-            raise ValueError("planes must start on 4-byte words")
-    if src2d.shape != ref2d.shape or src2d.stride(0) != ref2d.stride(0):
-        raise ValueError("src and ref planes must have the same layout")
-    if src2d.shape[2] % 4 or E % 4 or BW % 4:
-        raise ValueError("row stride, border and block width must be "
-                         "multiples of 4")
+            raise ValueError("images must start on 4-byte words")
+    if src_flat.shape != ref_flat.shape \
+            or src_flat.stride(0) != ref_flat.stride(0):
+        raise ValueError("src and ref images must have the same layout")
+    S, E = p.stride, p.ext
+    if S % 4 or E % 4 or BW % 4 or (layout.margin + p.offset) % 4:
+        raise ValueError("row stride, border, frame origin and block width "
+                         "must be multiples of 4")
+    b = FRAME_BORDER
+    org = layout.margin + p.offset
+    lo = org - max(b, BH + 1) * S - max(b, BW + 1) - 4
+    hi = org + (p.h + b + BH - 2) * S + p.w + b + BW + 8
+    if lo < 0 or hi > n:
+        raise ValueError("a search window could leave the image")
+    start = org - E * S - E
+    return (src_flat.data_ptr() + start, ref_flat.data_ptr() + start,
+            src_flat.stride(0), p.h + 2 * E, S, E, p.w, p.h)
 
 
-def _check_cands(src2d, cmx, cmy):
-    if cmx.shape != cmy.shape or cmx.shape[0] != src2d.shape[0]:
+def _check_cands(src_flat, cmx, cmy):
+    if cmx.shape != cmy.shape or cmx.shape[0] != src_flat.shape[0]:
         raise ValueError("candidate fields must be (B, nb, NC)")
 
 
-def refine_level(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH, level):
-    """One coarse pyramid level: (dx, dy, best) in level units, (B, nb).
-    src2d/ref2d: (B, EH, S) u8 extended planes; cmx/cmy: (B, nb, NC)
-    candidate MVs in full-res units."""
-    if not src2d.is_cuda:
-        return refine_level_plain(src2d, ref2d, cmx, cmy, E, w, h, nbh_l,
-                                  nb, BW, BH, level)
-    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
-    _check_planes(src2d, ref2d, E, BW)
-    _check_cands(src2d, cmx, cmy)
-    B, EH, S = src2d.shape
+def refine_level(src_flat, ref_flat, layout, cmx, cmy, nbh_l, nb, BW, BH,
+                 level):
+    """One pyramid level: (dx, dy, best) in level units, (B, nb).
+    src_flat/ref_flat: (B, n) u8 flat images of the level's `layout`;
+    cmx/cmy: (B, nb, NC) candidate MVs in full-res units."""
+    if not src_flat.is_cuda:
+        return refine_level_plain(src_flat, ref_flat, layout, cmx, cmy,
+                                  nbh_l, nb, BW, BH, level)
+    from ..kernels.build import LAUNCHES, launch
+    planes = _planes(src_flat, ref_flat, layout, BW, BH)
+    _check_cands(src_flat, cmx, cmy)
+    B = src_flat.shape[0]
     cm = _cands(cmx, cmy)
-    outs = [torch.empty((B, nb), dtype=torch.int32, device=src2d.device)
+    outs = [torch.empty((B, nb), dtype=torch.int32, device=src_flat.device)
             for _ in range(3)]
-    err = lib().dsv1_hme_refine(
-        src2d.data_ptr(), ref2d.data_ptr(), cm.data_ptr(), src2d.stride(0),
-        EH, S, E, w, h, nbh_l, nb, BW, BH, cmx.shape[-1], level, B,
-        *[o.data_ptr() for o in outs], stream_ptr(src2d))
-    check(err, "dsv1_hme_refine")
+    launch("dsv1_hme_refine", src_flat, *planes[:2], cm.data_ptr(),
+           *planes[2:], nbh_l, nb, BW, BH, cmx.shape[-1], level, B,
+           *[o.data_ptr() for o in outs])
     LAUNCHES["hme_refine"] += 1
     if level == 0:
         LAUNCHES["hme_refine_level0"] += 1
@@ -553,8 +549,8 @@ def refine_coarse(src_levels, ref_levels, layouts, blk_w, blk_h, nbh, nbv,
                   levels):
     """Levels `levels`..1 of the search, each level's candidates built
     from the level above's field. src_levels/ref_levels: per level, the
-    (B, EH, S) u8 extended planes (entries 1..levels are searched; entry
-    0 gives the batch and the device); layouts: the levels' FrameLayouts.
+    (B, n) u8 flat images (entries 1..levels are searched; entry 0 gives
+    the batch and the device); layouts: the levels' FrameLayouts.
     Returns the level-0 candidates, (B, nbh * nbv, 2 NC) int32 (x then y,
     full-res units; NC = 6, or 1 (the zero MV) when levels is 0)."""
     if not src_levels[0].is_cuda:
@@ -563,57 +559,51 @@ def refine_coarse(src_levels, ref_levels, layouts, blk_w, blk_h, nbh, nbv,
     B, dev = src_levels[0].shape[0], src_levels[0].device
     if levels == 0:
         return torch.zeros((B, nbh * nbv, 2), dtype=torch.int32, device=dev)
-    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
+    from ..kernels.build import LAUNCHES, launch
     params, fields = [], 0
     for level in range(1, levels + 1):
-        s2, r2 = src_levels[level], ref_levels[level]
-        p = layouts[level].planes[0]
-        _check_planes(s2, r2, p.ext, blk_w)
-        if s2.shape[0] != B or s2.shape[1:] != (p.h + 2 * p.ext, p.stride):
-            raise ValueError(f"level {level} planes do not match its layout")
-        params += [s2.data_ptr(), r2.data_ptr(), s2.stride(0), *s2.shape[1:],
-                   p.ext, p.w, p.h]
+        s, r = src_levels[level], ref_levels[level]
+        if s.shape[0] != B:
+            raise ValueError(f"level {level} images do not match the batch")
+        params += list(_planes(s, r, layouts[level], blk_w, blk_h))
         step = 1 << level
         fields += 2 * B * -(-nbh // step) * -(-nbv // step)
     scratch = torch.empty(fields, dtype=torch.int32, device=dev)
     cm = torch.empty((B, nbh * nbv, 2 * (1 + len(PT))), dtype=torch.int32,
                      device=dev)
-    err = lib().dsv1_hme_coarse(
-        (ctypes.c_int64 * len(params))(*params), levels, nbh, nbv, blk_w,
-        blk_h, B, scratch.data_ptr(), cm.data_ptr(), stream_ptr(cm))
-    check(err, "dsv1_hme_coarse")
+    launch("dsv1_hme_coarse", cm, (ctypes.c_int64 * len(params))(*params),
+           levels, nbh, nbv, blk_w, blk_h, B, scratch.data_ptr(),
+           cm.data_ptr())
     LAUNCHES["hme_refine"] += levels + 1   # a kernel per level, then cm
     return cm
 
 
-def refine_base(src2d, ref2d, cmx, cmy, E, w, h, nbh_l, nb, BW, BH):
+def refine_base(src_flat, ref_flat, layout, cmx, cmy, nbh_l, nb, BW, BH):
     """Level 0 at effort 0 on candidates cmx/cmy (B, nb, NC): (mvx, mvy,
     flags, qbits, luma_tex, src_var), each (B, nb) int32."""
-    _check_cands(src2d, cmx, cmy)
-    return refine_base_cm(src2d, ref2d, _cands(cmx, cmy), E, w, h, nbh_l,
-                          nb, BW, BH)
+    _check_cands(src_flat, cmx, cmy)
+    return refine_base_cm(src_flat, ref_flat, layout, _cands(cmx, cmy),
+                          nbh_l, nb, BW, BH)
 
 
-def refine_base_cm(src2d, ref2d, cm, E, w, h, nbh_l, nb, BW, BH):
+def refine_base_cm(src_flat, ref_flat, layout, cm, nbh_l, nb, BW, BH):
     """`refine_base` on candidates cm (B, nb, 2 NC) int32, x then y, as
     `refine_coarse` returns them."""
     nc = cm.shape[-1] // 2
-    if not src2d.is_cuda:
-        return refine_base_plain(src2d, ref2d, cm[..., :nc], cm[..., nc:],
-                                 E, w, h, nbh_l, nb, BW, BH)
-    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
-    _check_planes(src2d, ref2d, E, BW)
-    B, EH, S = src2d.shape
+    if not src_flat.is_cuda:
+        return refine_base_plain(src_flat, ref_flat, layout, cm[..., :nc],
+                                 cm[..., nc:], nbh_l, nb, BW, BH)
+    from ..kernels.build import LAUNCHES, launch
+    planes = _planes(src_flat, ref_flat, layout, BW, BH)
+    B = src_flat.shape[0]
     if cm.dtype != torch.int32 or not cm.is_contiguous() \
             or cm.shape != (B, nb, 2 * nc):
         raise ValueError("candidates must be contiguous (B, nb, 2 NC) int32")
-    outs = [torch.empty((B, nb), dtype=torch.int32, device=src2d.device)
+    outs = [torch.empty((B, nb), dtype=torch.int32, device=src_flat.device)
             for _ in range(6)]
-    err = lib().dsv1_hme_base(
-        src2d.data_ptr(), ref2d.data_ptr(), cm.data_ptr(), src2d.stride(0),
-        EH, S, E, w, h, nbh_l, nb, BW, BH, nc, B,
-        *[o.data_ptr() for o in outs], stream_ptr(src2d))
-    check(err, "dsv1_hme_base")
+    launch("dsv1_hme_base", src_flat, *planes[:2], cm.data_ptr(),
+           *planes[2:], nbh_l, nb, BW, BH, nc, B,
+           *[o.data_ptr() for o in outs])
     LAUNCHES["hme_base"] += 1
     return tuple(outs)
 
@@ -622,23 +612,15 @@ def refine_wide(src_flat, ref_flat, layout, nbh_l, nb, BW, BH, pre, effort):
     """Level 0 at effort 1..3 from the candidate search's `pre` = (dx,
     dy, best), each (B, nb) int32: (mvx, mvy, flags, qbits, luma_tex,
     src_var), each (B, nb) int32, as `refine_base_cm` gives them.
-    src_flat/ref_flat: (B, n) u8 flat level-0 images of `layout` (the
-    wide window may leave the extended plane; see refine_wide_plain)."""
+    src_flat/ref_flat: (B, n) u8 flat level-0 images of `layout`."""
     if effort not in (1, 2, 3):
         raise ValueError(f"effort must be 1, 2 or 3, not {effort}")
     if not src_flat.is_cuda:
         return refine_wide_plain(src_flat, ref_flat, layout, nbh_l, nb, BW,
                                  BH, pre, effort)
-    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
-    for t in (src_flat, ref_flat):
-        if t.dtype != torch.uint8 or t.dim() != 2 or t.stride(1) != 1:
-            raise ValueError("images must be (B, n) uint8 with contiguous "
-                             "rows")
-    if src_flat.shape != ref_flat.shape \
-            or src_flat.stride(0) != ref_flat.stride(0):
-        raise ValueError("src and ref images must have the same layout")
-    (src2d, ref2d), org, p = _wide_geometry(src_flat, ref_flat, layout)
-    _check_planes(src2d, ref2d, p.ext, BW)
+    from ..kernels.build import LAUNCHES, launch
+    _, _, pstride, EH, S, E, w, h = _planes(src_flat, ref_flat, layout, BW,
+                                            BH)
     B, n = src_flat.shape
     for t in pre:
         if t.dtype != torch.int32 or not t.is_contiguous() \
@@ -646,12 +628,10 @@ def refine_wide(src_flat, ref_flat, layout, nbh_l, nb, BW, BH, pre, effort):
             raise ValueError("pre must be contiguous (B, nb) int32")
     outs = [torch.empty((B, nb), dtype=torch.int32, device=src_flat.device)
             for _ in range(6)]
-    err = lib().dsv1_hme_wide(
-        src_flat.data_ptr(), ref_flat.data_ptr(), src_flat.stride(0), n,
-        org, p.h + 2 * p.ext, p.stride, p.ext, p.w, p.h,
-        chunk_width(p.stride).bit_length() - 1, nbh_l, nb, BW, BH, effort,
-        B, *[t.data_ptr() for t in pre], *[o.data_ptr() for o in outs],
-        stream_ptr(src_flat))
-    check(err, "dsv1_hme_wide")
+    launch("dsv1_hme_wide", src_flat, src_flat.data_ptr(),
+           ref_flat.data_ptr(), pstride, n,
+           layout.margin + layout.planes[0].offset, EH, S, E, w, h,
+           chunk_width(S).bit_length() - 1, nbh_l, nb, BW, BH, effort, B,
+           *[t.data_ptr() for t in pre], *[o.data_ptr() for o in outs])
     LAUNCHES["hme_wide"] += 1
     return tuple(outs)

@@ -71,14 +71,18 @@ def build_tables(W: int, H: int, nbh: int, nbv: int) -> TraversalTables:
                            segs=tuple(segs_out))
 
 
-def frame_quants(q: int, is_p: bool, plane_idx: int):
+def frame_quants(q, is_p: bool, plane_idx: int):
     """(qp_ll, qp0, qp1, qp2_shift, qp2h_shift) for one plane
-    (hzcc.c:50-57,199-208)."""
-    qf = min(q, CHROMA_LIMIT) if plane_idx > 0 else q
-    qp_ll = get_quant(qf, is_p, 0)
-    qp1 = get_quant(qf, is_p, 1)
-    qp2 = lb2(get_quant(qf, is_p, 2))
-    qp2h = min(max(qp2 - (QP_P if is_p else QP_I), 1), 24)
+    (hzcc.c:50-57,199-208), of a python int q or elementwise of an int32
+    tensor of quants."""
+    t = isinstance(q, torch.Tensor)
+    if plane_idx > 0:
+        q = q.clamp(max=CHROMA_LIMIT) if t else min(q, CHROMA_LIMIT)
+    qp_ll = get_quant(q, is_p, 0)
+    qp1 = get_quant(q, is_p, 1)
+    qp2 = lb2(get_quant(q, is_p, 2))
+    qp2h = qp2 - (QP_P if is_p else QP_I)
+    qp2h = qp2h.clamp(1, 24) if t else min(max(qp2h, 1), 24)
     return qp_ll, qp_ll, qp1, qp2, qp2h
 
 
@@ -161,17 +165,23 @@ def encode_plane_core(coefs, q: int, is_p: bool, plane_idx: int,
     return torch.cat(qparts, dim=-1), work
 
 
-def dequant_plane_grid(qgrid, dc: int, q: int, is_p: bool, plane_idx: int,
+def dequant_plane_grid(qgrid, dc, q, is_p: bool, plane_idx: int,
                        stable_blocks, tables: TraversalTables):
     """Dequantize a grid of quantized values (decode side of hzcc_dec,
-    hzcc.c:296-435); qgrid is (H, W) in grid order, band aliases already
-    resolved last-wins by the parser. dc: the raw DC."""
+    hzcc.c:296-435); qgrid is (..., H, W) in grid order, band aliases
+    already resolved last-wins by the parser, stable_blocks (..., nblk).
+    dc: the raw DC; dc and q python ints, or int32 tensors of the leading
+    shape (a DC and a quant per plane of a batch)."""
     qgrid = qgrid.to(torch.int32)
+    lead = qgrid.shape[:-2]
+    if isinstance(q, torch.Tensor):
+        q = q.to(torch.int32).reshape(lead + (1, 1))
     qp_ll, qp0, qp1, qp2, qp2h = frame_quants(q, is_p, plane_idx)
-    stable2d = stable_blocks.to(torch.int32).reshape(tables.nbv, tables.nbh)
+    stable2d = stable_blocks.to(torch.int32).reshape(
+        lead + (tables.nbv, tables.nbh))
     out = torch.zeros_like(qgrid)
     for (lvl, oy, ox, sh, sw, bj, bi) in tables.segs:
-        vals = qgrid[oy:oy + sh, ox:ox + sw]
+        vals = qgrid[..., oy:oy + sh, ox:ox + sw]
         if lvl == -1:
             dq = dequant_lo(vals, qp_ll)
         else:
@@ -180,8 +190,8 @@ def dequant_plane_grid(qgrid, dc: int, q: int, is_p: bool, plane_idx: int,
                 dq = dequant_lo(vals, _qparam(qp0, qp1, lvl, st))
             else:
                 dq = dequant_hi(vals, torch.where(st != 0, qp2h, qp2))
-        out[oy:oy + sh, ox:ox + sw] = torch.where(vals == 0, 0, dq)
-    out[0, 0] = dc
+        out[..., oy:oy + sh, ox:ox + sw] = torch.where(vals == 0, 0, dq)
+    out[..., 0, 0] = dc
     return out
 
 

@@ -202,7 +202,7 @@ def predict_frame(img, layout: FrameLayout, blk_w: int, blk_h: int,
     if not img.is_cuda:
         return predict_frame_plain(img, layout, blk_w, blk_h, nbh, nbv,
                                    modes, mvx, mvy, submask)
-    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
+    from ..kernels.build import LAUNCHES, launch
     if img.dtype != torch.uint8 or img.dim() not in (1, 2) \
             or img.stride(-1) != 1:
         raise ValueError("img must be a uint8 tensor (n,) or (C, n) with "
@@ -215,12 +215,9 @@ def predict_frame(img, layout: FrameLayout, blk_w: int, blk_h: int,
         f = [x.contiguous() for x in f]
     C = imgs.shape[0]
     out = torch.empty((C, size), dtype=torch.uint8, device=dev)
-    err = lib().dsv1_mc_frame(imgs.data_ptr(), imgs.shape[1], imgs.stride(0),
-                              _geo_array(layout, blk_w, blk_h), nbh, nbv,
-                              f[0].data_ptr(), f[1].data_ptr(),
-                              f[2].data_ptr(), f[3].data_ptr(),
-                              f[0].stride(0), out.data_ptr(), size, C,
-                              stream_ptr(img))
-    check(err, "dsv1_mc_frame")
+    launch("dsv1_mc_frame", img, imgs.data_ptr(), imgs.shape[1],
+           imgs.stride(0), _geo_array(layout, blk_w, blk_h), nbh, nbv,
+           f[0].data_ptr(), f[1].data_ptr(), f[2].data_ptr(),
+           f[3].data_ptr(), f[0].stride(0), out.data_ptr(), size, C)
     LAUNCHES["mc"] += 1
     return out if batch else out[0]

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..constants import MAXLVL, MINQUANT, QP_I, QP_P, round_shift
 
-from .cint import lb2, round2, round4, round8, tdiv, trunc_div
+from .cint import cdiv, lb2, round2, round4, round8, trunc_div
 
 
 # the Haar kernel's tile side and the levels a tile runs (64 -> 1): they
@@ -38,14 +38,17 @@ def nlevels(w: int, h: int) -> int:
     return lb2(max(w, h))
 
 
-def get_quant(q: int, is_p: bool, level: int) -> int:
-    """C.2.2 get_quant_lower_frequency (hzcc.c:77-92)."""
+def get_quant(q, is_p: bool, level: int):
+    """C.2.2 get_quant_lower_frequency (hzcc.c:77-92) of a python int q,
+    or elementwise of an int32 tensor of quants."""
     if is_p:
-        q = tdiv(q * 3, 2)
+        q = cdiv(q * 3, 2)
     if level == 1:
-        q = tdiv(q * 2, 3)
+        q = cdiv(q * 2, 3)
     elif level == 2:
-        q = tdiv(q * 3, 2)
+        q = cdiv(q * 3, 2)
+    if isinstance(q, torch.Tensor):
+        return q.clamp(min=MINQUANT)
     return max(q, MINQUANT)
 
 
@@ -170,7 +173,7 @@ def haar_fwd_pyramid(cur, out, first: int, lvls: int):
     if not cur.is_cuda:
         _haar_fwd_pyramid_plain(cur, out, first, lvls)
         return
-    from ..kernels.build import LAUNCHES, check, lib, stream_ptr
+    from ..kernels.build import LAUNCHES, launch
     if cur.dim() != out.dim() or cur.dim() not in (2, 3) \
             or cur.shape[:-2] != out.shape[:-2]:
         raise ValueError("haar_fwd_pyramid takes a plane (h, w) or a batch "
@@ -188,11 +191,9 @@ def haar_fwd_pyramid(cur, out, first: int, lvls: int):
     mid = torch.empty(C * -(-hs // HAAR_TILE) * -(-ws // HAAR_TILE)
                       if coarse else 0, dtype=torch.int32,
                       device=cur.device)
-    err = lib().dsv1_haar_pyramid(cur.data_ptr(), cur.stride(-2), sb, hs,
-                                  ws, first, lvls, out.data_ptr(),
-                                  out.stride(-2), ob, C, mid.data_ptr(),
-                                  stream_ptr(cur))
-    check(err, "dsv1_haar_pyramid")
+    launch("dsv1_haar_pyramid", cur, cur.data_ptr(), cur.stride(-2), sb, hs,
+           ws, first, lvls, out.data_ptr(), out.stride(-2), ob, C,
+           mid.data_ptr())
     LAUNCHES["haar_fwd"] += 1 + coarse
 
 
@@ -214,16 +215,20 @@ def fwd_sbt(coefs, is_p: bool):
     return out
 
 
-def _hqp_for_level(q: int, is_p: bool, i: int) -> int:
-    """C.3.1.4 get_HQP (sbt.c:667-696)."""
-    llq = tdiv(get_quant(q, is_p, 0), 2)
+def _hqp_for_level(q, is_p: bool, i: int):
+    """C.3.1.4 get_HQP (sbt.c:667-696) of a python int q, or elementwise
+    of an int32 tensor of quants."""
+    llq = cdiv(get_quant(q, is_p, 0), 2)
     if i > 3:
         return llq
     hqp = get_quant(q, is_p, MAXLVL - i)
     if i == 1:
-        hqp = min(max(lb2(hqp) - (QP_P if is_p else QP_I), 1), 24)
-        hqp = (1 << hqp) >> 1
-    return tdiv(hqp, 2)
+        hqp = lb2(hqp) - (QP_P if is_p else QP_I)
+        if isinstance(hqp, torch.Tensor):
+            hqp = (torch.ones_like(hqp) << hqp.clamp(1, 24)) >> 1
+        else:
+            hqp = (1 << min(max(hqp, 1), 24)) >> 1
+    return cdiv(hqp, 2)
 
 
 def _nudge(LLv, lo, hi, band, mask, hqp: int):
@@ -240,18 +245,22 @@ def _nudge(LLv, lo, hi, band, mask, hqp: int):
 
 
 def _haar_inv_region(cur, lh_col, hl_row, LH, HL, HH, ws: int, hs: int,
-                     scale: bool, filtered: bool, hqp: int):
+                     scale: bool, filtered: bool, hqp, col0: int = 0,
+                     fw: int | None = None):
     """C.3.1.3/C.3.1.4 Haar inverse, one level (sbt.c:351-574), on the
-    carried LL region (see the JAX twin for the neighbour reads)."""
+    carried LL region (see the JAX twin for the neighbour reads). A
+    region of columns col0.. of a level whose bands are fw wide (the
+    column tiles of parallel/tile.py) takes col0 and fw; by default the
+    region is the whole level."""
     ch, cw = cur.shape[-2:]
-    fw, fh = ws // 2, hs // 2
+    fw, fh = (ws // 2 if fw is None else fw), hs // 2
     inv_scale = _scale_inv if scale else (lambda v: v)
     LL = inv_scale(cur)
     if filtered:
         dev = cur.device
         lp = inv_scale(torch.cat([cur[..., :1], cur[..., :cw - 1]], dim=-1))
         ln = inv_scale(torch.cat([cur[..., 1:], lh_col], dim=-1))
-        col = torch.arange(cw, device=dev)
+        col = torch.arange(col0, col0 + cw, device=dev)
         row = torch.arange(ch, device=dev)
         in_x = ((col >= 1) & (col <= fw - 1))[None, :] \
             & (row <= fh - 1)[:, None]
@@ -269,14 +278,27 @@ def _haar_inv_region(cur, lh_col, hl_row, LH, HL, HH, ws: int, hs: int,
     return _interleave2x2(a00, a01, a10, a11)[..., :hs, :ws]
 
 
-def inv_sbt(coefs, q: int, is_p: bool, is_luma: bool):
-    """dsv_inv_sbt (sbt.c:653-714) on int32 coefs (..., H, W)."""
+def inv_sbt(coefs, q, is_p: bool, is_luma: bool):
+    """dsv_inv_sbt (sbt.c:653-714) on int32 coefs (..., H, W). q: the
+    quant, a python int, or an int32 tensor of the leading shape (a quant
+    per plane of a batch)."""
     H, W = coefs.shape[-2:]
     lvls = nlevels(W, H)
     a = coefs.to(torch.int32)
     _, _, cwl, chl, _, _ = _quad_dims(W, H, lvls)
-    cur = a[..., :chl, :cwl]
-    for i in range(lvls, 0, -1):
+    return inv_levels(a, a[..., :chl, :cwl], W, H, q, is_p, is_luma, lvls,
+                      1).contiguous()
+
+
+def inv_levels(a, cur, W: int, H: int, q, is_p: bool, is_luma: bool,
+               hi: int, lo: int):
+    """Levels hi..lo of dsv_inv_sbt for a (W, H) plane: cur the LL region
+    entering level hi, a the coefficient array (..., rows, cols) from its
+    top-left corner, as far as these levels read it. Returns the LL
+    region after level lo (the plane when lo is 1). q as in inv_sbt."""
+    if isinstance(q, torch.Tensor):
+        q = q.to(torch.int32).reshape(q.shape + (1, 1))
+    for i in range(hi, lo - 1, -1):
         ws, hs, cw, ch, fw, fh = _quad_dims(W, H, i)
         hqp = _hqp_for_level(q, is_p, i) if is_luma else 0
         LHr = a[..., 0:ch, cw:cw + fw]
@@ -294,7 +316,7 @@ def inv_sbt(coefs, q: int, is_p: bool, is_luma: bool):
             full = torch.cat([torch.cat([cur, LHr], dim=-1),
                               a[..., ch:hs, 0:ws]], dim=-2)
             cur = _b4t_inv_2d(full)
-    return cur.contiguous()
+    return cur
 
 
 def coefs_to_plane(coefs):

@@ -14,7 +14,7 @@ the verdicts, then run over the chunk's frames in stream order
 (`GopEncoder.stab_chain`), so each GOP starts from its exact state with
 no redo. Then the recon chain runs frame index by frame index, the
 chunk's frames of one type at a time through one launch of each kernel
-(`GopEncoder.encode_chunk`: at most two core calls per frame index, the
+(`GopEncoder.chain_steps`: at most two core calls per frame index, the
 P frames and the forced-intra ones). The chunk's quantized planes are
 compacted on the device (ops/hzcc.py: each I frame as dense int8 plus
 the LL's large values, each P slot as a capped (run, value) list), and
@@ -28,6 +28,18 @@ frame, as in the JAX package; padded frames are encoded and dropped at
 pack time. Frames are read chunk by chunk: a long or large input is
 never held whole. At gop 0 (intra only) every frame is its own GOP with
 no HME and no recon, and frames go through in chunks (`_encode_intra`).
+
+Over a mesh (`mesh=`: a GOP mesh, or a gop x tile mesh, parallel/mesh.py)
+a chunk is C GOPs for each row of the mesh (a 'gop' index), split
+contiguously as the JAX package's `PartitionSpec("gop")` splits them
+(`_GopRunner`): each row's GOPs get their upload, motion, recon chain,
+compaction and host read on the row's first device, the stability chain
+runs over the whole chunk in stream order (so a state carried into a GOP
+crosses a row boundary), and the rows' work is queued step by step, one
+row after the other (`_drive`), so distinct devices overlap. A gop x
+tile row runs its encode core's subband transforms in column tiles over
+its devices (parallel/tile.py). The bytes are those of one device at
+that chunk.
 
 Under per-frame ABR (`_encode_abr_exact`, one GOP at a time) the
 reference's law (ops/rc.py) picks each frame's quality from the exact
@@ -85,6 +97,8 @@ from ..ops.hme import hme_batch
 from ..state import EncoderState
 from ..utils.blob import fetch, fetch_dense
 from ..utils.stats import STATS
+from .mesh import Mesh, gop_rows
+from .tile import tile_hook
 
 
 class ChunkOutput:
@@ -169,13 +183,17 @@ def gop_bytes(pkt: bytes, meta_len: int, n_real: int, G: int) -> list:
 class GopEncoder:
     """Closed GOPs on one device, a chunk of C GOPs at a time: `motion()`
     for the input-only work, `stab_chain()` for the stability
-    accumulators, `encode_chunk()` for the recon chain."""
+    accumulators, `chain_steps()` for the recon chain. With `tiles` (a
+    gop x tile mesh row's devices, the first of them `device`) the
+    encode core's subband transforms run in column tiles over them
+    (parallel/tile.py)."""
 
     def __init__(self, subsamp: int, w: int, h: int, G: int, quality: int,
                  do_scd: bool = True, scd_delta: int = 4,
                  intra_thresh: int = 50, stable_refresh: int = 0,
                  pyramid_levels: int = 0, device="cuda",
-                 cap_quality: int | None = None, effort: int = 0):
+                 cap_quality: int | None = None, effort: int = 0,
+                 tiles: tuple = ()):
         self.device = resolve(device)
         self.effort = effort
         self.subsamp, self.w, self.h, self.G = subsamp, w, h, G
@@ -195,8 +213,10 @@ class GopEncoder:
         self.plane_sizes = [t.n for t in tables]
         self.layouts = pyr_layouts(subsamp, w, h, self.levels)
         self.prep = make_prep(subsamp, w, h, self.levels)
-        self.core = make_encode_core_traced(subsamp, w, h, self.blk_w,
-                                            self.blk_h, self.nbh, self.nbv)
+        self.core = make_encode_core_traced(
+            subsamp, w, h, self.blk_w, self.blk_h, self.nbh, self.nbv,
+            tile_hook=tile_hook([resolve(d) for d in tiles]) if tiles
+            else None)
 
     def motion(self, packed, calls: list | None = None):
         """packed: (n, fsz) u8 planar frames of one GOP, or (C, n, fsz) of
@@ -297,9 +317,8 @@ class GopEncoder:
             a = b
         return stable
 
-    def encode_chunk(self, st: EncoderState, imgs0, mv, has_ref, stable,
-                     quants=None, law=None,
-                     forced_i: bool = False) -> ChunkOutput:
+    def chain_steps(self, st: EncoderState, imgs0, mv, has_ref, stable,
+                    quants=None, law=None, forced_i: bool = False):
         """The recon chain of a chunk of C GOPs of n frames: imgs0 the
         level-0 images (C * n, flat), has_ref (C, n-1) host, stable the
         stable blocks (`stab_chain`). Frame index by frame index, the
@@ -311,7 +330,10 @@ class GopEncoder:
         comes from the rate state st.rc, which the frame's exact packed
         size then updates; forced_i says the I frame is a scene cut.
         Compacts the chunk's planes on the device and returns its host
-        output, read in one copy (two on overflow)."""
+        output, read in one copy (two on overflow). A generator: it
+        yields after each frame index's work is queued and after the
+        compaction is queued, and returns the ChunkOutput (`_drive` runs
+        several, one per device, in step)."""
         C, n = stable.shape[:2]
         dev = stable.device
         hr = np.asarray(has_ref, bool).reshape(C, n - 1)
@@ -379,6 +401,7 @@ class GopEncoder:
                 st.rc = law[1](st.rc, is_p, quality, plen)
             ref = new_ref
             frame_q[:, i] = quant
+            yield
         parts = {"i_dc": dcs[:, 0], "i_stable": stable[:, 0]}
         for c, (qv, ll_n) in enumerate(zip(qbuf, self.ll_sizes)):
             q8, pos, vals, nbig = hzcc.compact_dense_i(qv[:, 0], ll_n)
@@ -395,6 +418,7 @@ class GopEncoder:
             for k, dt in (("mode", torch.uint8), ("mvx", torch.int16),
                           ("mvy", torch.int16), ("submask", torch.uint8)):
                 parts[f"p_{k}"] = fields[k].to(dt)
+        yield
         host = fetch(parts)   # one read per chunk
         overflow = any(host[f"i_nbig{c}"].any() for c in range(3)) \
             or (n > 1 and bool(host["p_ovf"].any()))
@@ -408,16 +432,34 @@ class GopEncoder:
         return ChunkOutput(self, host, hr, frame_q, dense_h)
 
 
+def _drive(gens) -> list:
+    """Runs generators in step, one step of each in turn, to their ends;
+    returns their return values. Each yields after queueing a step's
+    device work, so the work of generators on distinct devices
+    overlaps."""
+    out = [None] * len(gens)
+    live = list(range(len(gens)))
+    while live:
+        for j in list(live):
+            try:
+                next(gens[j])
+            except StopIteration as e:
+                out[j] = e.value
+                live.remove(j)
+    return out
+
+
 @lru_cache(maxsize=8)
 def build_gop_encoder(subsamp: int, w: int, h: int, G: int, quality: int,
                       do_scd: bool = True, scd_delta: int = 4,
                       intra_thresh: int = 50, stable_refresh: int = 0,
                       pyramid_levels: int = 0, device: str = "cuda",
-                      cap_quality: int | None = None, effort: int = 0):
+                      cap_quality: int | None = None, effort: int = 0,
+                      tiles: tuple = ()):
     """The GOP encoder for one geometry (cached)."""
     return GopEncoder(subsamp, w, h, G, quality, do_scd, scd_delta,
                       intra_thresh, stable_refresh, pyramid_levels, device,
-                      cap_quality, effort)
+                      cap_quality, effort, tiles)
 
 
 def _chunks(frames, C: int, G: int, pad: bool = True):
@@ -616,43 +658,82 @@ class _AbrState:
 
 
 class _GopRunner:
-    """The per-chunk steps every GOP mode shares: upload, motion and the
-    verdicts' host read, the stability chain, the recon chain,
-    packing."""
+    """The per-chunk steps every GOP mode shares (upload, motion and the
+    verdicts' host read, the stability chain, the recon chain, packing)
+    over the GOP rows of a mesh: one encoder per row (one row without a
+    mesh), each row taking `per` GOPs of a chunk, a contiguous split as
+    `PartitionSpec("gop")` lays them out. Each row's GOPs get their
+    upload, motion, recon chain, compaction and read on its device; the
+    stability chain runs over the whole chunk in stream order on the
+    first row's device, so a carried state crosses a row boundary. The
+    rows' work is queued in turn, step by step, so distinct devices
+    overlap."""
 
-    def __init__(self, enc: GopEncoder, meta: Metadata, dev):
-        self.enc, self.dev = enc, dev
+    def __init__(self, encs: list, meta: Metadata, per: int):
+        self.encs, self.per = encs, per
         self.meta_pkt = bytes(encode_metadata_packet(meta))
 
+    def _rows(self, a):
+        return [a[r * self.per:(r + 1) * self.per]
+                for r in range(len(self.encs))]
+
     def motion(self, rows):
-        """rows (C, n, fsz) -> (images, host average lumas (C, n), motion,
-        host has_ref (C, n-1))."""
+        """rows (C, n, fsz) -> (per row its images and motion, host
+        average lumas (C, n), host has_ref (C, n-1))."""
         C, n = rows.shape[:2]
         with record_function("gop.upload"):
-            packed = torch.from_numpy(rows).to(self.dev)
+            packed = [torch.from_numpy(r).to(e.device)
+                      for e, r in zip(self.encs, self._rows(rows))]
         with record_function("gop.motion"):
-            imgs, al, mv, has_ref = self.enc.motion(packed)
-            # one host read per chunk: the average lumas and the has_ref
-            # verdicts
-            parts = [al.reshape(-1)]
-            if has_ref is not None:
-                parts.append(has_ref.reshape(-1).to(al.dtype))
-            hv = torch.cat(parts).cpu().numpy()
-            return (imgs, hv[:C * n].reshape(C, n), mv,
-                    hv[C * n:].astype(bool).reshape(C, n - 1))
+            outs = []
+            for e, pk in zip(self.encs, packed):
+                imgs, al, mv, has_ref = e.motion(pk)
+                parts = [al.reshape(-1)]
+                if has_ref is not None:
+                    parts.append(has_ref.reshape(-1).to(al.dtype))
+                outs.append((imgs, mv, torch.cat(parts)))
+            # one host read per row and chunk: the average lumas and the
+            # has_ref verdicts
+            hv = [o[2].cpu().numpy() for o in outs]
+            k = self.per * n
+            return ([(o[0], o[1]) for o in outs],
+                    np.concatenate([h[:k] for h in hv]).reshape(C, n),
+                    np.concatenate([h[k:] for h in hv]).astype(bool)
+                    .reshape(C, n - 1))
 
-    def stability(self, st, mv, hr, n_real: int):
+    def stability(self, st, mots, hr, n_real: int):
+        """The stable blocks of every row, (per, n, nblk) each on its
+        row's device, from the whole chunk's stability chain."""
         with record_function("gop.stability"):
-            return self.enc.stab_chain(st, mv, hr, n_real)
+            e0 = self.encs[0]
+            mvs = [m for _i, m in mots]
+            mv = (None if mvs[0] is None else
+                  mvs[0] if len(mvs) == 1 else
+                  {k: torch.cat([m[k].to(st.stability.device) for m in mvs])
+                   for k in MV_KEYS})
+            stable = e0.stab_chain(st, mv, hr, n_real)
+            return [t.to(e.device) for e, t in zip(self.encs,
+                                                   self._rows(stable))]
 
-    def chain(self, st, imgs, mv, hr, stable, **kw) -> ChunkOutput:
+    def chain(self, st, mots, hr, stables, **kw) -> list:
+        """The rows' recon chains, queued in step: their ChunkOutputs."""
         with record_function("gop.recon_chain"):
-            return self.enc.encode_chunk(st, imgs[0], mv, hr, stable, **kw)
+            return _drive([e.chain_steps(st, imgs[0], mv, h, stb, **kw)
+                           for e, (imgs, mv), h, stb in zip(
+                               self.encs, mots, self._rows(hr), stables)])
 
-    def pack(self, res: ChunkOutput, fnum0: int, prev_link: int,
-             n_real: int):
+    def pack(self, res: list, fnum0: int, prev_link: int, n_real: int):
+        """Each row's GOPs holding a real frame, packed in GOP order."""
         with record_function("gop.pack"):
-            return res.pack(self.meta_pkt, fnum0, prev_link, n_real)
+            out = bytearray()
+            span = self.per * res[0].n
+            for r, ro in enumerate(res):
+                k = min(max(n_real - r * span, 0), span)
+                if k:
+                    pkt, prev_link = ro.pack(self.meta_pkt, fnum0 + r * span,
+                                             prev_link, k)
+                    out.extend(pkt)
+            return bytes(out), prev_link
 
 
 def _encode_chunks(frames, G: int, C: int, run: _GopRunner,
@@ -690,16 +771,16 @@ def _encode_chunks(frames, G: int, C: int, run: _GopRunner,
              else _pipelined(chunks, lambda _c: rate.gop_quants(), depth))
     for (f0, rows, n_real), (quants, quals) in sched:
         STATS["chunks"] += 1
-        imgs, _al, mv, hr = run.motion(rows)
-        stable = run.stability(st, mv, hr, n_real)
-        res = run.chain(st, imgs, mv, hr, stable, quants=quants)
-        if not res.overflow and not calibrated:
+        mots, _al, hr = run.motion(rows)
+        stable = run.stability(st, mots, hr, n_real)
+        res = run.chain(st, mots, hr, stable, quants=quants)
+        if not any(r.overflow for r in res) and not calibrated:
             calibrated = True
             STATS["calibration_gop"] = f0 // G
             trial, _ = run.pack(res, fnum_base + f0, prev_link, n_real)
             feed(trial, quals, n_real)
             quants, quals = rate.gop_quants()
-            res = run.chain(st, imgs, mv, hr, stable, quants=quants)
+            res = run.chain(st, mots, hr, stable, quants=quants)
         pkt, prev_link = run.pack(res, fnum_base + f0, prev_link, n_real)
         out.extend(pkt)
         if rate is not None:
@@ -719,7 +800,7 @@ def _encode_abr_exact(frames, cfg: EncoderConfig, meta: Metadata,
     prev_link = 0
     for f0, rows, n_real in _chunks(frames, 1, cfg.gop, pad=False):
         STATS["chunks"] += 1
-        imgs, al_h, mv, hr = run.motion(rows)
+        mots, al_h, hr = run.motion(rows)
         forced_i = False
         if cfg.do_scd:
             # the GOP's I frame is a scene cut against the previous frame
@@ -728,9 +809,8 @@ def _encode_abr_exact(frames, cfg: EncoderConfig, meta: Metadata,
             forced_i = abs(int(al_h[0, 0]) - st.prev_al) \
                 > cfg.scene_change_delta
             st.prev_al = int(al_h[0, -1])
-        stable = run.stability(st, mv, hr, n_real)
-        res = run.chain(st, imgs, mv, hr, stable, law=law,
-                        forced_i=forced_i)
+        stable = run.stability(st, mots, hr, n_real)
+        res = run.chain(st, mots, hr, stable, law=law, forced_i=forced_i)
         pkt, prev_link = run.pack(res, fnum_base + f0, prev_link, n_real)
         out.extend(pkt)
     return out, prev_link
@@ -755,7 +835,7 @@ def gops_per_chunk(cfg: EncoderConfig, w: int, h: int, n_frames: int = 0,
 
 def encode_stream_gops(frames, meta: Metadata,
                        cfg: EncoderConfig | None = None, device="cuda",
-                       gops_per_device: int = 0, *,
+                       gops_per_device: int = 0, *, mesh: Mesh | None = None,
                        abr_mode: str = "exact", _fnum_base: int = 0,
                        _emit_eos: bool = True, _return_state: bool = False,
                        _stab_init: tuple | None = None):
@@ -774,6 +854,16 @@ def encode_stream_gops(frames, meta: Metadata,
     changes the bytes, as in the JAX package; per-frame ABR runs one GOP
     at a time whatever the argument (its bytes do not depend on it).
 
+    mesh: a GOP mesh (`gop_mesh`) or a gop x tile mesh (`gop_tile_mesh`),
+    whose devices take `device`'s place (the JAX package's `mesh`
+    argument): a chunk is gops_per_device GOPs for each index of the
+    'gop' axis, split contiguously over it; each row of the mesh runs
+    its GOPs' motion, recon chain, compaction and read on its first
+    device, a gop x tile row its subband transforms in column tiles over
+    its devices (parallel/tile.py). The bytes are those of one device
+    at that chunk. gop 0 ignores the mesh (on its first device), as the
+    JAX package's intra path does.
+
     The underscore arguments serve the sharded path
     (parallel/multihost.py): a frame-number offset, no EOS for a partial
     stream, and with `_return_state` the return value (stream, last
@@ -782,9 +872,15 @@ def encode_stream_gops(frames, meta: Metadata,
     EncodedShard.stab_final) to start from. Per-frame ABR ignores
     `_stab_init`, as the JAX package does. Raises the JAX package's
     ValueError for ABR at gop 0, for gop > 4096 (the sequential `Encoder`
-    runs those) and for per-frame ABR with `_return_state`."""
+    runs those), for per-frame ABR with a mesh or `_return_state`, and
+    for a mesh with a 'tile' axis but no 'gop' axis."""
     cfg = cfg or EncoderConfig()
-    dev = resolve(device)
+    if mesh is not None and "tile" in mesh.axis_names \
+            and "gop" not in mesh.axis_names:
+        raise ValueError("mesh has a 'tile' axis but no 'gop' axis; "
+                         "build it with gop_tile_mesh(n_gop, n_tile)")
+    rows = None if mesh is None else gop_rows(mesh)
+    dev = resolve(device) if mesh is None else rows[0][0]
     abr = cfg.rc_mode != RATE_CONTROL_CRF
     if abr and cfg.gop == GOP_INTRA:
         raise ValueError("GOP-parallel ABR needs gop > 0; "
@@ -796,7 +892,7 @@ def encode_stream_gops(frames, meta: Metadata,
         raise ValueError(f"abr_mode must be 'exact' or 'gop', not "
                          f"{abr_mode!r}")
     exact = abr and abr_mode == "exact"
-    if exact and _return_state:
+    if exact and (mesh is not None or _return_state):
         raise ValueError("exact per-frame ABR is a serial rate chain (single "
                          "device); use abr_mode='gop' for meshes / shard "
                          "state")
@@ -807,13 +903,16 @@ def encode_stream_gops(frames, meta: Metadata,
         state = (np.zeros((nblk, 2), np.int32), 0)
     else:
         G = cfg.gop
-        enc = build_gop_encoder(subsamp, w, h, G, cfg.quality, cfg.do_scd,
-                                cfg.scene_change_delta, cfg.intra_pct_thresh,
-                                cfg.stable_refresh, cfg.pyramid_levels,
-                                str(dev), cfg.max_quality if abr else None,
-                                cfg.effort)
-        run = _GopRunner(enc, meta, dev)
-        nblk = enc.nbh * enc.nbv
+        encs = [build_gop_encoder(subsamp, w, h, G, cfg.quality, cfg.do_scd,
+                                  cfg.scene_change_delta,
+                                  cfg.intra_pct_thresh, cfg.stable_refresh,
+                                  cfg.pyramid_levels, str(r[0]),
+                                  cfg.max_quality if abr else None,
+                                  cfg.effort,
+                                  tuple(str(d) for d in r) if len(r) > 1
+                                  else ())
+                for r in (rows or [[dev]])]
+        nblk = encs[0].nbh * encs[0].nbv
         init = None if exact else _stab_init
         st = EncoderState(
             stability=torch.from_numpy(
@@ -823,14 +922,14 @@ def encode_stream_gops(frames, meta: Metadata,
             ref_recon=None,
             rc=rc.init_state(cfg.quality, dev) if exact else None)
         if exact:
-            out, prev_link = _encode_abr_exact(frames, cfg, meta, run, st,
-                                               _fnum_base)
+            out, prev_link = _encode_abr_exact(
+                frames, cfg, meta, _GopRunner(encs, meta, 1), st, _fnum_base)
         else:
-            C = gops_per_chunk(cfg, w, h, len(frames) if hasattr(
+            per = gops_per_chunk(cfg, w, h, len(frames) if hasattr(
                 frames, "__len__") else 0, gops_per_device)
             out, prev_link = _encode_chunks(
-                frames, G, C, run, st, _fnum_base,
-                _AbrState(cfg, meta) if abr else None)
+                frames, G, per * len(encs), _GopRunner(encs, meta, per), st,
+                _fnum_base, _AbrState(cfg, meta) if abr else None)
         state = (st.stability.cpu().numpy().astype(np.int32),
                  int(st.refresh_ctr))
     if _emit_eos:

@@ -31,6 +31,7 @@ from ..models.bitstream import encode_eos_packet, encode_metadata_packet
 from ..models.encoder import EncoderConfig, block_geometry
 from ..models.metadata import Metadata
 from .gop import encode_stream_gops
+from .mesh import Mesh
 
 # byte offset of the prev-link field in a packet header (B.1)
 _PREV_OFF = 6
@@ -70,7 +71,7 @@ def shard_ranges(n_frames: int, gop: int, n_shards: int):
 
 def encode_shard(frames, meta: Metadata, cfg: EncoderConfig, first_gop: int,
                  gops_per_device: int = 0, stab_init: tuple | None = None,
-                 device="cuda") -> EncodedShard:
+                 device="cuda", mesh: Mesh | None = None) -> EncodedShard:
     """Encode one process's GOP range. frames must start at a GOP
     boundary (frame number first_gop * cfg.gop). CRF only, as in the JAX
     package.
@@ -80,13 +81,16 @@ def encode_shard(frames, meta: Metadata, cfg: EncoderConfig, first_gop: int,
     without it the shard assumes that its first GOP starts at a
     stability refresh, which holds whenever the boundary falls on one
     (the CLI default stable_refresh = gop - 1, unless a forced-intra
-    frame moved the refresh in the previous shard's last GOPs)."""
+    frame moved the refresh in the previous shard's last GOPs). With a
+    GOP mesh (its devices take `device`'s place) the shard's GOPs are
+    split over it, as in encode_stream_gops."""
     if cfg.rc_mode != RATE_CONTROL_CRF:
         raise ValueError("multi-host GOP sharding requires CRF")
     G = max(cfg.gop, 1) if cfg.gop != GOP_INTRA else 1
     data, last, stab = encode_stream_gops(
-        frames, meta, cfg, device, gops_per_device, _fnum_base=first_gop * G,
-        _emit_eos=False, _return_state=True, _stab_init=stab_init)
+        frames, meta, cfg, device, gops_per_device, mesh=mesh,
+        _fnum_base=first_gop * G, _emit_eos=False, _return_state=True,
+        _stab_init=stab_init)
     return EncodedShard(data=data, last_pic_len=last, first_gop=first_gop,
                         stab_final=stab)
 
@@ -117,11 +121,12 @@ def mux_shards(parts, meta: Metadata) -> bytes:
 
 def encode_stream_multihost(frames, meta: Metadata,
                             cfg: EncoderConfig | None = None,
-                            n_shards: int = 2, device="cuda") -> bytes:
+                            n_shards: int = 2, device="cuda",
+                            mesh: Mesh | None = None) -> bytes:
     """Every shard of the multi-process flow in this process, one after
-    another (each carrying the previous shard's stability state), then
-    the mux: byte-identical to encode_stream_gops over the whole
-    sequence."""
+    another (each carrying the previous shard's stability state, each
+    over `mesh` where one is given), then the mux: byte-identical to
+    encode_stream_gops over the whole sequence."""
     cfg = cfg or EncoderConfig()
     frames = list(frames)
     parts = []
@@ -131,7 +136,7 @@ def encode_stream_multihost(frames, meta: Metadata,
             continue
         parts.append(encode_shard(frames[f0:f0 + nf], meta, cfg,
                                   first_gop=g0, stab_init=stab,
-                                  device=device))
+                                  device=device, mesh=mesh))
         stab = parts[-1].stab_final
     return mux_shards(parts, meta)
 
@@ -148,7 +153,7 @@ def _all_gather(dist, arr: np.ndarray) -> np.ndarray:
 def run_distributed_shard(coordinator: str, num_processes: int,
                           process_id: int, frames_all, meta: Metadata,
                           cfg: EncoderConfig, out_path=None,
-                          device="cuda"):
+                          device="cuda", mesh: Mesh | None = None):
     """One rank of the multi-process encode on torch.distributed (gloo,
     `tcp://coordinator`, e.g. "127.0.0.1:29500"): each rank encodes its
     GOP range (`shard_ranges`) at once from zeroed stability
@@ -160,7 +165,8 @@ def run_distributed_shard(coordinator: str, num_processes: int,
     shards are gathered by length, then as padded bytes, and rank 0 muxes
     them: byte-identical to a one-process encode.
 
-    frames_all: the whole sequence (each rank encodes only its range).
+    frames_all: the whole sequence (each rank encodes only its range);
+    mesh: the rank's own GOP mesh (its devices take `device`'s place).
     On a GPU the kernels are built before the process group starts, so a
     rank's first build does not hold up the others' collectives.
     Returns (the muxed stream on rank 0, else None; (encode seconds,
@@ -171,7 +177,8 @@ def run_distributed_shard(coordinator: str, num_processes: int,
     import torch.distributed as dist
 
     from ..device import resolve
-    if resolve(device).type == "cuda":
+    if (resolve(device) if mesh is None
+            else mesh.devices.reshape(-1)[0]).type == "cuda":
         from ..kernels.build import lib
         lib()
     dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
@@ -187,7 +194,7 @@ def run_distributed_shard(coordinator: str, num_processes: int,
 
         def encode(init=None):
             return (encode_shard(frames_all[f0:f0 + nf], meta, cfg, g0,
-                                 stab_init=init, device=device)
+                                 stab_init=init, device=device, mesh=mesh)
                     if nf else None)
 
         def stab_row(sh):

@@ -17,7 +17,10 @@ paths run; callers set it to 0 with `STATS.clear()`. Keys:
 - `hme_calls`, `hme_calls_wide`: `hme_batch` calls at effort 0 and at
   effort 1..3 (one per chunk of GOPs of more than one frame on the GOP
   path, one per P frame on the sequential `Encoder`);
-- `decode_p`: P pictures predicted by the decoders;
+- `decode_p`, `decode_p_calls`: P pictures predicted by the decoders,
+  and the MC calls that predicted them (each a launch of the MC
+  kernel: the GOP decoder's P pictures of one frame index of a chunk of
+  chains on one device, or one picture of the sequential `Decoder`);
 - `overflow_redos`: chunks of GOPs (gop 0: chunks of frames;
   sequential: frames) whose compacted planes overflowed their caps and
   were packed from the dense planes instead;

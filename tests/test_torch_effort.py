@@ -6,7 +6,10 @@ asks for equal results:
 
 - `refine_level_plain` at level 0 against the Pallas `_refine_kernel`
   in interpret mode, with 64-wide blocks in the E = 64 border and
-  candidates pinned at the +-E validity limits;
+  candidates just inside the +-E validity limits (there the Pallas
+  kernel's clamped windows and the XLA search's flat reads agree), and
+  against the XLA `_refine_common(0, ...)` (the CPU route, which wrote
+  the goldens) with candidates on the limits and past them;
 - `refine_wide_plain` + `refine_base_from_kernel` against the JAX
   package's `refine_base(pre=..., effort=e)`, with `pre` pinned at the
   four edges of the 9-point search: with 64x64 blocks the wide window
@@ -14,7 +17,8 @@ asks for equal results:
   rows before the image's start (clipped as the JAX gather clips them);
 - the port's `hme_batch(effort=2)` against both JAX routes (XLA `hme`
   and `hme_batch` through the Pallas kernels in interpret mode), and at
-  the +-64 level-0 limit, where the two routes differ, against each;
+  the +-64 level-0 limit, where the two routes differ, at effort 0 and
+  2 against the XLA route exactly (every coarse level too);
 - `encode_stream_gops` at CRF effort 2, the sequential `Encoder` at
   effort 2 (resumed from a JAX state_dict too), and the CLI with
   -effort1 under per-frame ABR, with -gopabr1 and on -gopar0, decoded
@@ -73,8 +77,10 @@ LEVEL0_CASES = [
 
 @pytest.mark.parametrize("w,h,BW,BH,seed", LEVEL0_CASES)
 def test_refine_level0_plain_matches_pallas(w, h, BW, BH, seed):
-    """Kernel #2 at level 0: E = 64, 64-wide blocks, candidates at the
-    +-E validity limits (and past them) in both axes."""
+    """Kernel #2 at level 0: E = 64, 64-wide blocks, candidates two
+    pixels inside the +-E validity limits in both axes, where no window
+    of the search leaves the extended plane (so the Pallas clamp does
+    not bind)."""
     s, r, lay = _level0(w, h, [(seed, 3), (seed + 1, 0)])
     s2, r2 = jhme._lvl2d(jnp.asarray(s), lay), jhme._lvl2d(jnp.asarray(r),
                                                           lay)
@@ -83,14 +89,54 @@ def test_refine_level0_plain_matches_pallas(w, h, BW, BH, seed):
     E = lay.planes[0].ext
     cmx, cmy = (t.numpy() for t in edge_cands(
         np.random.default_rng(seed), "cpu", 2, nbh, nbv, w, h, BW, BH, E))
+    t = np.arange(nb)
+    bx, by = (t % nbh) * BW, (t // nbh) * BH
+    cmx = np.clip(cmx, (2 - E - bx)[None, :, None],
+                  (w + E - BW - 2 - bx)[None, :, None])
+    cmy = np.clip(cmy, (2 - E - by)[None, :, None],
+                  (h + E - BH - 2 - by)[None, :, None])
+    cmx[..., 0] = cmy[..., 0] = 0
     want = pallas_hme.refine_level_pallas(
         s2, r2, jnp.asarray(cmx), jnp.asarray(cmy), lay, 0, BW, BH, nbh, nb,
         interpret=True)
-    p = tfr.make_layout(SUBSAMP_420, w, h, True).planes[0]
-    got = hk.refine_level(_t(s2), _t(r2), _t(cmx), _t(cmy), p.ext, p.w, p.h,
-                          nbh, nb, BW, BH, 0)
+    tl = tfr.make_layout(SUBSAMP_420, w, h, True)
+    got = hk.refine_level(_t(s), _t(r), tl, _t(cmx), _t(cmy), nbh, nb, BW,
+                          BH, 0)
     for g, e in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+
+
+@pytest.mark.parametrize("w,h,BW,BH,seed", LEVEL0_CASES)
+def test_refine_level0_plain_matches_xla_at_the_limit(w, h, BW, BH, seed):
+    """Kernel #2 at level 0 against the XLA search (`_refine_common(0,
+    ...)`, the CPU route): the parent field holds MVs on the +-E
+    validity limits of its blocks, one inside and one past them, so the
+    candidates, and the 9-point windows after them, reach past the
+    extended plane, where the XLA search reads the flat image on."""
+    s, r, lay = _level0(w, h, [(seed, 3), (seed + 1, 0)])
+    nbh, nbv = -(-w // BW), -(-h // BH)
+    nb = nbh * nbv
+    E = lay.planes[0].ext
+    cmx, cmy = (t.numpy() for t in edge_cands(
+        np.random.default_rng(seed), "cpu", 2, nbh, nbv, w, h, BW, BH, E))
+    # the parent field: each block's MV one of its edge candidates
+    k = np.random.default_rng(seed + 1).integers(1, 6, (2, nb))
+    mvf = np.stack([np.take_along_axis(c, k[..., None], -1)[..., 0]
+                    for c in (cmx, cmy)], -1).reshape(2, nbv, nbh, 2)
+    tl = tfr.make_layout(SUBSAMP_420, w, h, True)
+    tcx, tcy = hk._build_cands_batched(0, _t(mvf), nbh, nbv)
+    got = hk.refine_level(_t(s), _t(r), tl, tcx, tcy, nbh, nb, BW, BH, 0)
+    xla = jax.jit(lambda m, s1, r1: jhme._refine_common(
+        0, m, s1, r1, lay, BW, BH, nbh, nbv)[7:10])
+    bx = (np.arange(nb) % nbh) * BW
+    lim = np.stack([-E - bx, w + E - np.minimum(w - bx, BW) - bx])
+    assert (np.abs(tcx.numpy()[..., None] - lim.T[None, :, None])
+            <= 1).any(), "no candidate on the limit"
+    for b in range(2):
+        want = xla(jnp.asarray(mvf[b]), jnp.asarray(s[b]), jnp.asarray(r[b]))
+        for name, g, e in zip(("dx", "dy", "best"), got, want):
+            np.testing.assert_array_equal(g[b].numpy(), np.asarray(e),
+                                          err_msg=f"{name} pair {b}")
 
 
 WIDE_CASES = [
@@ -189,26 +235,47 @@ def _panned_pyramids(w, h, sx, sy, levels, seed):
 
 
 @pytest.mark.slow
-def test_hme_batch_effort_at_the_level0_limit():
+@pytest.mark.parametrize("effort", [0, 2])
+def test_hme_batch_effort_at_the_level0_limit(effort):
     """A pan of 64 pixels in both axes at 64x64 blocks and 6 levels pulls
     level-0 candidates and 9-point results onto the +-E (64) validity
     limit. There the JAX package's two routes differ: its Pallas kernel
     #2 clamps the 9-point windows into the extended plane, while XLA
     `hme` (the CPU encoders' route, which wrote the goldens) reads the
-    flat image past it. The port follows the Pallas route exactly, and
-    differs from XLA only on blocks whose 9-point search reached the
-    limit (its result within a pixel of it)."""
-    w, h, blk, levels, effort = 256, 192, 64, 6, 2
+    flat image past it. The port follows the XLA route: every coarse
+    level's field (each level from XLA's field of the level above) and
+    the level-0 result equal it exactly, at effort 0 (kernel #3) and 2
+    (kernel #2 at level 0, then `hme_wide`)."""
+    w, h, blk, levels = 256, 192, 64, 6
     si, ri, lays = _panned_pyramids(w, h, -64, -64, levels, 3)
     nbh, nbv = -(-w // blk), -(-h // blk)
     xla = jax.jit(lambda s1, r1: jhme.hme(
         s1, r1, lays, blk, blk, nbh, nbv, SUBSAMP_420, levels,
         effort=effort))(si, ri)
-    pal = {k: v[0] for k, v in jhme.hme_batch(
-        [a[None] for a in si], [a[None] for a in ri], lays, blk, blk, nbh,
-        nbv, SUBSAMP_420, levels, interpret=True, effort=effort).items()}
     tl = [tfr.make_layout(SUBSAMP_420, lay.width, lay.height, True)
           for lay in lays]
+    mvf = None
+    for level in range(levels, 0, -1):
+        step, ii, jj = hk._lvl_grid(level, nbh, nbv)
+        if mvf is None:
+            cmx = cmy = torch.zeros((1, len(ii) * len(jj), 1),
+                                    dtype=torch.int32)
+        else:
+            cmx, cmy = hk._build_cands_batched(level, _t(mvf)[None], nbh,
+                                               nbv)
+        dx, dy, _ = hk.refine_level(_t(si[level])[None], _t(ri[level])[None],
+                                    tl[level], cmx, cmy, len(ii),
+                                    len(ii) * len(jj), blk, blk, level)
+        mvf = np.asarray(jhme.refine_coarse(level, mvf, si[level], ri[level],
+                                            lays[level], blk, blk, nbh, nbv))
+        p = tl[level].planes[0]
+        infr = ((((ii * blk) >> level)[None, :] < p.w)
+                & (((jj * blk) >> level)[:, None] < p.h)).reshape(-1)
+        for name, d, want in (("dx", dx, mvf[::step, ::step, 0]),
+                              ("dy", dy, mvf[::step, ::step, 1])):
+            np.testing.assert_array_equal(
+                np.where(infr, d[0].numpy() << level, 0),
+                want.reshape(-1), err_msg=f"level {level} {name}")
     calls = []
     got = thme.hme_batch([_t(a)[None] for a in si], [_t(a)[None] for a in ri],
                          tl, blk, blk, nbh, nbv, SUBSAMP_420, levels,
@@ -219,22 +286,16 @@ def test_hme_batch_effort_at_the_level0_limit():
     lims = (np.stack([-p.ext - bx, w + p.ext - np.minimum(w - bx, blk) - bx]),
             np.stack([-p.ext - by, h + p.ext - np.minimum(h - by, blk) - by]))
     args = dict(calls)
-    cm = args["hme_level0"][2:4]
+    cm = (args["hme_base"][3] if effort == 0
+          else torch.cat(args["hme_level0"][3:5], -1))
+    nc = cm.shape[-1] // 2
     assert any((c[0].numpy().T[:, None] == lim[None]).any()
-               for c, lim in zip(cm, lims)), "no candidate on the limit"
-    pre = [a[0].numpy() for a in args["hme_wide"][7][:2]]
-    on_lim = np.zeros(t.size, bool)   # the 9-point window met the limit
-    for d, lim in zip(pre, lims):
-        on_lim |= (np.abs(d[:, None] - lim.T) <= 1).any(-1)
-    assert on_lim.any()
+               for c, lim in zip((cm[..., :nc], cm[..., nc:]), lims)), \
+        "no candidate on the limit"
     for key in ("mode", "mvx", "mvy", "submask", "lo_tex", "lo_var",
                 "high_detail", "intra_pct"):
-        g = got[key][0].numpy()
-        np.testing.assert_array_equal(g, np.asarray(pal[key]), err_msg=key)
-        differ = (g != np.asarray(xla[key])).reshape(-1) if g.ndim else \
-            np.zeros(t.size, bool)
-        assert not (differ & ~on_lim).any(), \
-            f"{key}: the port differs from XLA off the limit"
+        np.testing.assert_array_equal(got[key][0].numpy(),
+                                      np.asarray(xla[key]), err_msg=key)
 
 
 W, H, G, NF = 96, 80, 4, 12   # as tests/test_effort.py

@@ -62,7 +62,8 @@ def _pyramid(planes, w, h):
 
 def _planes2d(w, h, level, seeds):
     """(B, EH, S) extended luma planes (JAX arrays) at one level for B
-    frame pairs, and the level's layout."""
+    frame pairs, the level's layout, and the port's (B, n) flat images
+    and layout."""
     srcs, refs = [], []
     for seed, shift in seeds:
         f1, f0 = _frames(w, h, seed, shift)
@@ -73,7 +74,9 @@ def _planes2d(w, h, level, seeds):
     lay = lays[level]
     s2 = jhme._lvl2d(jnp.asarray(np.stack(srcs)), lay)
     r2 = jhme._lvl2d(jnp.asarray(np.stack(refs)), lay)
-    return s2, r2, lay
+    return s2, r2, lay, (_t(np.stack(srcs)), _t(np.stack(refs)),
+                         tfr.make_layout(SUBSAMP_420, lay.width, lay.height,
+                                         True))
 
 
 def _cands(rng, B, nb, nc, w, h):
@@ -100,8 +103,8 @@ LEVEL_CASES = [
 
 @pytest.mark.parametrize("w,h,level,nc,seed", LEVEL_CASES)
 def test_refine_level_plain_matches_pallas(w, h, level, nc, seed):
-    s2, r2, lay = _planes2d(w, h, level, [(seed + 1, 3), (seed + 2, 0)])
-    p = lay.planes[0]
+    s2, r2, lay, flats = _planes2d(w, h, level,
+                                   [(seed + 1, 3), (seed + 2, 0)])
     step = 1 << level
     nbh_l = len(range(0, -(-w // BLK), step))
     nb = nbh_l * len(range(0, -(-h // BLK), step))
@@ -109,8 +112,8 @@ def test_refine_level_plain_matches_pallas(w, h, level, nc, seed):
     want = pallas_hme.refine_level_pallas(
         s2, r2, jnp.asarray(cmx), jnp.asarray(cmy), lay, level, BLK, BLK,
         nbh_l, nb, interpret=True)
-    got = hk.refine_level(_t(s2), _t(r2), _t(cmx), _t(cmy), p.ext, p.w, p.h,
-                          nbh_l, nb, BLK, BLK, level)
+    got = hk.refine_level(*flats, _t(cmx), _t(cmy), nbh_l, nb, BLK, BLK,
+                          level)
     for g, e in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(e))
 
@@ -127,16 +130,14 @@ BASE_CASES = [
 
 @pytest.mark.parametrize("w,h,seed,shift,banded", BASE_CASES)
 def test_refine_base_plain_matches_pallas(w, h, seed, shift, banded):
-    s2, r2, lay = _planes2d(w, h, 0, [(seed, shift), (seed + 7, 0)])
-    p = lay.planes[0]
+    s2, r2, lay, flats = _planes2d(w, h, 0, [(seed, shift), (seed + 7, 0)])
     nbh = -(-w // BLK)
     nb = nbh * -(-h // BLK)
     cmx, cmy = _cands(np.random.default_rng(seed), 2, nb, 6, w, h)
     want = pallas_hme.refine_base_pallas(
         s2, r2, jnp.asarray(cmx), jnp.asarray(cmy), lay, BLK, BLK, nbh, nb,
         interpret=True, banded=banded)
-    got = hk.refine_base(_t(s2), _t(r2), _t(cmx), _t(cmy), p.ext, p.w, p.h,
-                         nbh, nb, BLK, BLK)
+    got = hk.refine_base(*flats, _t(cmx), _t(cmy), nbh, nb, BLK, BLK)
     for name, g, e in zip(("mvx", "mvy", "flags", "qbits", "luma_tex",
                            "src_var"), got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(e),
@@ -201,7 +202,10 @@ def test_refine_coarse_plain_matches_pallas(w, h, seeds, levels):
     want = _jax_coarse_cands(s2, r2, lays, nbh, nbv, levels)
     tl = [tfr.make_layout(SUBSAMP_420, lay.width, lay.height, True)
           for lay in lays]
-    got = hk.refine_coarse([_t(a) for a in s2], [_t(a) for a in r2], tl,
+    got = hk.refine_coarse([_t(np.stack([s[lv] for s in srcs]))
+                            for lv in range(len(lays))],
+                           [_t(np.stack([r[lv] for r in refs]))
+                            for lv in range(len(lays))], tl,
                            BLK, BLK, nbh, nbv, levels)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)

@@ -48,6 +48,19 @@ mh = multihost.encode_stream_multihost(
 assert mh == dt.encode_stream_gops(
     frames * 3, dt.Metadata(w, h, dt.SUBSAMP_420),
     dt.EncoderConfig(gop=3, stable_refresh=2), device="cpu")
+ms = dt.encode_stream_gops(frames * 3, dt.Metadata(w, h, dt.SUBSAMP_420),
+                           dt.EncoderConfig(gop=3, stable_refresh=2),
+                           mesh=dt.gop_mesh(["cpu"] * 2))
+assert ms == mh
+assert len(dt.decode_stream_gops(ms, mesh=dt.gop_mesh(["cpu"] * 2))[1]) == 9
+assert dt.encode_stream_gops(frames * 3, dt.Metadata(w, h, dt.SUBSAMP_420),
+                             dt.EncoderConfig(gop=3, stable_refresh=2),
+                             mesh=dt.gop_tile_mesh(1, 2, ["cpu"] * 2)) == mh
+tm = dt.tile_mesh(["cpu"] * 2)
+a = torch.arange(32 * 48, dtype=torch.int32).reshape(32, 48) % 97 - 48
+t = dt.fwd_sbt_tiled(dt.split_tiles(a, tm), False, tm)
+r = dt.join_tiles(dt.inv_sbt_tiled(t, 200, False, True, tm))
+assert r.shape == a.shape
 enc = dt.Encoder(dt.Metadata(w, h, dt.SUBSAMP_420),
                  dt.EncoderConfig(gop=3, stable_refresh=2), device="cpu")
 enc.start()
@@ -85,7 +98,8 @@ def test_no_source_imports_the_jax_package():
     files = sorted((ROOT / "dsv1_tpu_torch").rglob("*.py"))
     # chip_smoke.py and the tools it runs
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile.py",
-              ROOT / "tools" / "torch_shard_worker.py"]
+              ROOT / "tools" / "torch_shard_worker.py",
+              ROOT / "tools" / "torch_mesh_cards.py"]
     assert len(files) > 20
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in IMPORT_OF_JAX_PACKAGE.finditer(
@@ -126,6 +140,22 @@ def test_cuda_request_raises_without_cuda():
                                          dt.EncoderConfig(gop=2)),
     ]
     for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_meshes_raise_without_cuda():
+    """A mesh of every visible CUDA device, or of CUDA entries, raises
+    where there is no card: no CPU pick."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default devices are valid")
+    for call in (dt.gop_mesh, dt.tile_mesh,
+                 lambda: dt.gop_tile_mesh(1, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for call in (lambda: dt.gop_mesh(["cuda:0"] * 2),
+                 lambda: dt.tile_mesh(["cuda:0"]),
+                 lambda: dt.gop_tile_mesh(2, 2, ["cuda:0"] * 4)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 

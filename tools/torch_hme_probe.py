@@ -189,7 +189,7 @@ def main():
                 hk.refine_base_cm(*bargs)
                 torch.cuda.synchronize()
                 kb.check(L.dsv1_phase_read(out), "dsv1_phase_read")
-            blocks = bargs[0].shape[0] * bargs[7]
+            blocks = bargs[0].shape[0] * bargs[5]
             cyc = {p: out[k] / blocks for k, p in enumerate(PHASES)}
             r = {"name": f"hme_base_kernel phases {clip} {blk} threads={nt} "
                          f"min_blocks={mb}", "cycles_per_block": cyc,

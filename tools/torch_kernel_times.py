@@ -30,8 +30,10 @@ torch.profiler's kernel events, of it the time of the case's own
 hand-written kernels (`haar_`, `mc_` or `hme_` in the name), and the
 kernels launched and host-to-device copies made per call.
 `--e2e N` also times N encodes (`encode_stream_gops`, CRF) and N
-decodes of the 1080p golden clip after a warm-up, each to its last
-device sync, on the host clock.
+decodes of the 1080p golden clip (or of `--e2e-clip`, an
+encode_stream_gops golden clip with its own arguments, such as
+`cif_batch`) after a warm-up, each to its last device sync, on the host
+clock, with the MC launches of a decode.
 `--root` imports the port from another checkout (for example an
 unpacked parent commit), so two trees are timed by one script in one
 call. Needs a CUDA device.
@@ -249,34 +251,44 @@ def hme_effort_cases(dev, clip, effort=3):
     return rows
 
 
-def e2e_case(dev, reps: int):
-    """Host seconds of each of reps encodes and decodes of the 1080p
-    golden clip (24 frames, gop 12, CRF), after one warm-up of each."""
+def e2e_case(dev, reps: int, clip: str = "1080p"):
+    """Host seconds of each of reps encodes and decodes of a golden clip
+    (`encode_stream_gops` with the clip's arguments: 24 frames, gop 12,
+    CRF for `1080p`), after one warm-up of each, and the MC launches of
+    one decode."""
     import torch
 
     import dsv1_tpu_torch as dt
-    from dsv1_tpu_torch.utils.golden import GOP, QUALITY_PCT, clip_frames
+    from dsv1_tpu_torch.kernels.build import LAUNCHES
+    from dsv1_tpu_torch.utils import golden
 
-    _yuv, frames = clip_frames("1080p")
+    _yuv, frames = golden.clip_frames(clip)
     h, w = frames[0][0].shape
-    meta = dt.Metadata(w, h, dt.SUBSAMP_420)
-    cfg = dt.EncoderConfig(quality=dt.quality_percent(QUALITY_PCT), gop=GOP,
-                           stable_refresh=GOP - 1)
-    stream = dt.encode_stream_gops(frames, meta, cfg, device=dev)
+    if clip in getattr(golden, "API", {}):
+        meta, cfg, kw = golden.encode_args(clip)
+    else:
+        meta, kw = dt.Metadata(w, h, dt.SUBSAMP_420), {}
+        cfg = dt.EncoderConfig(quality=dt.quality_percent(
+            golden.QUALITY_PCT), gop=golden.GOP,
+            stable_refresh=golden.GOP - 1)
+    stream = dt.encode_stream_gops(frames, meta, cfg, dev, **kw)
+    LAUNCHES.clear()
     dt.decode_stream_gops(stream, device=dev)
+    torch.cuda.synchronize()
+    mc = LAUNCHES["mc"]
     enc, dec = [], []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        dt.encode_stream_gops(frames, meta, cfg, device=dev)
+        dt.encode_stream_gops(frames, meta, cfg, dev, **kw)
         torch.cuda.synchronize()
         enc.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         dt.decode_stream_gops(stream, device=dev)
         torch.cuda.synchronize()
         dec.append(time.perf_counter() - t0)
-    return {"name": "1080p CRF encode/decode, 24 frames", "encode_s": enc,
-            "decode_s": dec}
+    return {"name": f"{clip} encode/decode, {len(frames)} frames",
+            "encode_s": enc, "decode_s": dec, "decode_mc_launches": mc}
 
 
 def main():
@@ -285,9 +297,12 @@ def main():
                     help="checkout whose dsv1_tpu_torch is timed")
     ap.add_argument("--out", default=None, help="also write JSON here")
     ap.add_argument("--only", default="haar,mc,hme",
-                    help="comma-separated cases to time (haar, mc, hme)")
+                    help="comma-separated cases to time (haar, mc, hme; "
+                         "none for --e2e alone)")
     ap.add_argument("--e2e", type=int, default=0, metavar="N",
-                    help="also time N encodes and decodes of the 1080p clip")
+                    help="also time N encodes and decodes of a clip")
+    ap.add_argument("--e2e-clip", default="1080p",
+                    help="the golden clip --e2e times (default 1080p)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -308,7 +323,7 @@ def main():
         rows += (hme_effort_cases(dev, "1080p")
                  + hme_effort_cases(dev, "4k_cli"))
     if args.e2e:
-        rows.append(e2e_case(dev, args.e2e))
+        rows.append(e2e_case(dev, args.e2e, args.e2e_clip))
     res = {"root": str(Path(dsv1_tpu_torch.__file__).parent.parent),
            "card": card, "seconds": time.perf_counter() - t0, "rows": rows}
     print(json.dumps(res, indent=1))
