@@ -28,8 +28,9 @@ non-zero:
    sums (device only). Each row gets the least time the card could take
    for the same work (bytes over 3.35 TB/s, integer operations over 132
    SMs x 64 INT32 lanes x the SM clock, the larger of the two). The HME
-   rows count their per-pixel u8 operations four pixels to an
-   instruction, as sm_90a runs them (VABSDIFF4, IDP.4A), and also give
+   rows count a 4-pixel SAD as one instruction (VABSDIFF4.U8.ACC, which
+   issues at the INT32 rate) and every other per-pixel u8 operation
+   four pixels to an instruction, as sm_90a runs them, and also give
    the bound of the scalar count and their bytes bound alone.
 4. edges   — small clips with partial blocks, 4:4:4, 4:2:2 and 4:1:1
    chroma, per-frame and GOP-granular ABR, encoded and decoded on the
@@ -60,7 +61,11 @@ non-zero:
    `hme_batch`'s own arguments and on edge inputs (candidates at the
    +-64 validity limits, a `pre` at the four edges of the 9-point
    search), `hme_wide` at efforts 1, 2 and 3, and both again on the
-   B = 1 arguments the sequential Encoder passes at effort 2; both
+   B = 1 arguments the sequential Encoder passes at effort 2 (`hme_wide`
+   at every effort there); `hme_wide` also at every effort on CIF's
+   16x16 blocks and on a 1918x1078 clip (each on its own and an edge
+   `pre`), and on the 1080p GOP's images cut 48 rows around the frame,
+   so that windows read the cut image's first and last chunk; both
    decoders' last frame (`Decoder`, `iter_decode_gops`) of a CRF
    effort-2 encode of `1080p_effort_seq_cli`'s clip held to the
    Encoder's reconstruction of it; then three clips through the CLI and
@@ -144,7 +149,13 @@ ENCODE_REPS = 2            # the first encode/decode of a clip warms up
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 INT32_LANES = 132 * 64     # SMs x INT32 lanes per SM
 U8_PER_WORD = 4            # u8 pixels per SIMD integer instruction
-SAD_OPS = 2                # per pixel of a SAD: |a - b|, then the add
+SAD_OPS = 2                # scalar ops a SAD pixel: |a - b|, then the add
+# INT32 issue slots of a 4-pixel SAD: one VABSDIFF4.U8.ACC (|a - b| of
+# four bytes and their sum into an accumulator), which issues at IMAD's
+# rate (tools/torch_hme_probe.py --kernels isa)
+SAD_SLOTS = 1
+HP_PIXELS = 14 * 14        # a half-pel SAD window
+FILTER_OPS = 9             # a filtered sample: 4 taps, rounding, clamp
 # `hme_refine_level0` counts `hme_refine`'s level-0 launches apart
 KERNELS = ("mc", "hme_refine", "hme_refine_level0", "hme_base", "hme_wide",
            "haar_fwd")
@@ -261,13 +272,25 @@ def _search_area(w, h, nbh_l, nb, BW, BH):
     return min(nbh_l * BW, w) * min((nb // nbh_l) * BH, h)
 
 
+def _half_pel(blocks, rh):
+    """(SAD pixels, other scalar ops) of the half-pel stage of `blocks`
+    in-frame blocks on the +-rh grid ((2 rh + 1)^2 - 1 points, 8 at rh
+    1): a 14x14 SAD per point; per block FILTER_OPS for each sample of
+    the three filtered planes (horizontal, vertical, diagonal) over the
+    (14 + rh)^2 samples the grid's windows cover, each plane filtered
+    once, and 20 ops per window pixel for the two texture statistics."""
+    points = (2 * rh + 1) ** 2 - 1
+    return (blocks * points * HP_PIXELS,
+            blocks * (3 * (14 + rh) ** 2 * FILTER_OPS + 20 * HP_PIXELS))
+
+
 def work_hme_coarse(cargs):
-    """(bytes, scalar ops) of the coarse levels of one GOP, summed over
-    levels: per level both planes, candidates and outputs; per block
-    pixel SAD_OPS for each of NC candidates (1 at the top level, else 6)
-    and 9 refine points."""
+    """(bytes, SAD pixels, other ops) of the coarse levels of one GOP,
+    summed over levels: per level both planes, candidates and outputs;
+    per block pixel a SAD for each of NC candidates (1 at the top level,
+    else 6) and 9 refine points."""
     src, _ref, lays, BW, BH, nbh, nbv, levels = cargs
-    nbytes = ops = 0
+    nbytes = sad = 0
     for level in range(levels, 0, -1):
         p = lays[level].planes[0]
         step = 1 << level
@@ -276,72 +299,66 @@ def work_hme_coarse(cargs):
         B, NC = src[level].shape[0], 1 if level == levels else 6
         nbytes += 2 * _plane_bytes(src[level], lays[level]) \
             + B * nb * (2 * NC + 3) * 4
-        ops += B * _search_area(p.w, p.h, nbh_l, nb, BW, BH) * SAD_OPS \
-            * (NC + 9)
-    return nbytes, ops
+        sad += B * _search_area(p.w, p.h, nbh_l, nb, BW, BH) * (NC + 9)
+    return nbytes, sad, 0
 
 
 def work_hme_base(args):
-    """(bytes, scalar ops) of one level-0 call: as one coarse level, plus
-    28 ops per
-    block pixel for its statistics (sums, squares, gradients, zero-MV
-    window, intra test, quadrant metric) and, per in-frame block, 10 ops
-    per pixel of the 14x14 centre for each of the 8 half-pel points and
-    20 for the two texture statistics."""
+    """(bytes, SAD pixels, other ops) of one level-0 call: as one coarse
+    level, plus 28 ops per block pixel for its statistics (sums, squares,
+    gradients, zero-MV window, intra test, quadrant metric) and, per
+    in-frame block, the half-pel stage on the 8 neighbours
+    (`_half_pel`)."""
     src, _ref, lay, cm, nbh_l, nb, BW, BH = args
     w, h = lay.planes[0].w, lay.planes[0].h
     B, NC = src.shape[0], cm.shape[-1] // 2
     nbv_l = nb // nbh_l
     inframe = min(nbh_l, -(-w // BW)) * min(nbv_l, -(-h // BH))
     nbytes = 2 * _plane_bytes(src, lay) + B * nb * (2 * NC + 6) * 4
-    ops = B * (_search_area(w, h, nbh_l, nb, BW, BH)
-               * (SAD_OPS * (NC + 9) + 28)
-               + inframe * 14 * 14 * (8 * 10 + 20))
-    return nbytes, ops
+    area = B * _search_area(w, h, nbh_l, nb, BW, BH)
+    hp_sad, hp_ops = _half_pel(B * inframe, 1)
+    return nbytes, area * (NC + 9) + hp_sad, area * 28 + hp_ops
 
 
 def work_hme_level(args):
-    """(bytes, scalar ops) of one `refine_level` call: both planes, the
-    candidates and the outputs; per block pixel SAD_OPS for each of NC
-    candidates and 9 refine points."""
+    """(bytes, SAD pixels, other ops) of one `refine_level` call: both
+    planes, the candidates and the outputs; per block pixel a SAD for
+    each of NC candidates and 9 refine points."""
     src, _ref, lay, cmx, _cmy, nbh_l, nb, BW, BH, _level = args
     w, h = lay.planes[0].w, lay.planes[0].h
     B, NC = src.shape[0], cmx.shape[-1]
     nbytes = 2 * _plane_bytes(src, lay) + B * nb * (2 * NC + 3) * 4
-    return nbytes, (B * _search_area(w, h, nbh_l, nb, BW, BH) * SAD_OPS
-                    * (NC + 9))
+    return nbytes, B * _search_area(w, h, nbh_l, nb, BW, BH) * (NC + 9), 0
 
 
 def work_hme_wide(wargs):
-    """(bytes, scalar ops) of one `refine_wide` call: both luma planes,
-    `pre` and the outputs; per block pixel SAD_OPS for each of the
-    (2R + 1)^2 - 1 offsets of the full-pel window (R = 2 effort) and the
-    28 of `work_hme_base`'s statistics; per in-frame block, 10 ops per
-    pixel of the 14x14 centre for each point of the half-pel grid
-    ((3 + 2 effort)^2 - 1) and 20 for the two texture statistics."""
+    """(bytes, SAD pixels, other ops) of one `refine_wide` call: both
+    luma planes, `pre` and the outputs; per block pixel a SAD for each
+    of the (2R + 1)^2 - 1 offsets of the full-pel window (R = 2 effort)
+    and the 28 ops of `work_hme_base`'s statistics; per in-frame block
+    the half-pel stage on the +-(1 + effort) grid (`_half_pel`)."""
     _src, _ref, lay, nbh_l, nb, BW, BH, pre, effort = wargs
     p = lay.planes[0]
     B = pre[0].shape[0]
     nbv_l = nb // nbh_l
     inframe = min(nbh_l, -(-p.w // BW)) * min(nbv_l, -(-p.h // BH))
     offsets = (4 * effort + 1) ** 2 - 1
-    points = (2 * effort + 3) ** 2 - 1
     nbytes = 2 * B * (p.h + 2 * p.ext) * p.stride + B * nb * 9 * 4
-    ops = B * (_search_area(p.w, p.h, nbh_l, nb, BW, BH)
-               * (SAD_OPS * offsets + 28)
-               + inframe * 14 * 14 * (points * 10 + 20))
-    return nbytes, ops
+    area = B * _search_area(p.w, p.h, nbh_l, nb, BW, BH)
+    hp_sad, hp_ops = _half_pel(B * inframe, 1 + effort)
+    return nbytes, area * offsets + hp_sad, area * 28 + hp_ops
 
 
 def hme_bounds(work, bound):
-    """The HME rows' bound from (bytes, scalar ops): the ops packed four
-    u8 pixels to an instruction (per 4 pixels of a SAD one VABSDIFF4 and
-    one IDP.4A, where the scalar count has SAD_OPS a pixel; every other
-    per-pixel op likewise), with the scalar count's bound and the bytes
-    bound beside it: (bound_ms, bound_by, extra row fields)."""
-    nbytes, ops = work
-    b_ms, b_by = bound(nbytes, ops / U8_PER_WORD)
-    return b_ms, b_by, {"scalar_ops_bound_ms": bound(0, ops)[0],
+    """The HME rows' bound from (bytes, SAD pixels, other scalar ops):
+    u8 pixels packed four to an instruction, SAD_SLOTS INT32 issue slots
+    per 4 pixels of a SAD and one per 4 pixels of every other per-pixel
+    op, with the scalar count's bound (SAD_OPS a SAD pixel) and the
+    bytes bound beside it: (bound_ms, bound_by, extra row fields)."""
+    nbytes, sad, ops = work
+    b_ms, b_by = bound(nbytes, (SAD_SLOTS * sad + ops) / U8_PER_WORD)
+    return b_ms, b_by, {"scalar_ops_bound_ms": bound(0, SAD_OPS * sad
+                                                     + ops)[0],
                         "bytes_bound_ms": bound(nbytes, 0)[0]}
 
 
@@ -966,9 +983,10 @@ def check_seq_hme(dev, frames, effort=0):
     arguments the sequential Encoder passes at `effort` for the second
     frame of a clip (a P frame): `refine_coarse`, then at effort 0
     `refine_base_cm`, else `refine_level` at level 0 and `refine_wide`
-    (the [None] views of trap 5: word alignment at B = 1). Prints per
-    kernel the error, the CUDA-event ms and the device-only ms; returns
-    the errors by kernel."""
+    (the [None] views of trap 5: word alignment at B = 1), `refine_wide`
+    at efforts 1, 2 and 3 on the `pre` of `effort`. Prints per kernel
+    the error, the CUDA-event ms and the device-only ms; returns the
+    errors by kernel."""
     import dsv1_tpu_torch as dt
     from dsv1_tpu_torch.ops import hme_kernels as hk
     h, w = frames[0][0].shape
@@ -998,6 +1016,10 @@ def check_seq_hme(dev, frames, effort=0):
         out[name] = {"max_abs_err": max_abs_err(kern(*a), plain(*a)),
                      "ms": cuda_ms(lambda: kern(*a), 20),
                      "device_ms": device_ms(lambda: kern(*a), 20)}
+        if name == "hme_wide":
+            out[name]["max_abs_err"] = max(
+                max_abs_err(kern(*a[:-1], e), plain(*a[:-1], e))
+                for e in (1, 2, 3))
     emit(out)
     for name, *_ in kerns:
         if out[name]["max_abs_err"] != 0:
@@ -1123,12 +1145,105 @@ def check_effort_kernels(dev, frames, seed):
     return err_l, err_w, largs, wargs, enc
 
 
+def wide_cut(wargs, pre, effort, head, n):
+    """`hme_wide`'s kernel on images cut to n bytes from byte `head` of
+    each pair's flat image (one direct call, not counted as a launch),
+    and `refine_wide_plain` on the same cut images: windows past the
+    cut ends read its first or last chunk. Returns the largest error."""
+    import dataclasses
+
+    import torch
+
+    from dsv1_tpu_torch.kernels.build import launch
+    from dsv1_tpu_torch.ops import hme_kernels as hk
+    src, ref, lay, nbh_l, nb, BW, BH, _pre, _e = wargs
+    _, _, pstride, EH, S, E, w, h = hk._planes(src, ref, lay, BW, BH)
+    B = src.shape[0]
+    org = lay.margin + lay.planes[0].offset - head
+    outs = [torch.empty((B, nb), dtype=torch.int32, device=src.device)
+            for _ in range(6)]
+    launch("dsv1_hme_wide", src, src.data_ptr() + head,
+           ref.data_ptr() + head, pstride, n, org, EH, S, E, w, h,
+           hk.chunk_width(S).bit_length() - 1, nbh_l, nb, BW, BH, effort, B,
+           *[t.data_ptr() for t in pre], *[o.data_ptr() for o in outs])
+    cut = dataclasses.replace(lay, margin=lay.margin - head)
+    want = hk.refine_wide_plain(src[:, head:head + n], ref[:, head:head + n],
+                                cut, nbh_l, nb, BW, BH, pre, effort)
+    return max_abs_err(tuple(outs), want)
+
+
+def check_wide_cases(dev, clips, wargs, seed):
+    """`refine_wide` against its plain version beyond the main path's
+    1080p and 4K GOPs, at efforts 1, 2 and 3: on CIF's 16x16 blocks and
+    on a 1918x1078 clip (the right block column partial, its width not a
+    word multiple), each on the encoder's `pre` and an edge `pre`; and
+    on the 1080p GOP's images (wargs) cut 48 rows above and below the
+    frame, so that the edge `pre`'s windows reach the image's first and
+    last chunk while its half-pel neighbourhoods stay inside (that some
+    windows reach past each end is checked). Prints the errors by case;
+    returns the largest."""
+    import numpy as np
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.ops import hme_kernels as hk
+    from dsv1_tpu_torch.utils import corpus
+    from dsv1_tpu_torch.utils.edges import edge_pre
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    w, h, n = 1918, 1078, 3
+    odd = corpus.split_frames(corpus.make_clip(w, h, dt.SUBSAMP_420, n,
+                                               seed=seed), w, h,
+                              dt.SUBSAMP_420, n)
+    errs = {}
+    for tag, frames, G in (("cif 16x16", clips["cif"][1], None),
+                           ("1918x1078", odd, n)):
+        enc, _imgs, _mv, calls = gop_motion(dev, frames, G, effort=3)
+        (a,) = [x for name, x in calls if name == "hme_wide"]
+        p = enc.layouts[0].planes[0]
+        ep = edge_pre(rng, dev, a[0].shape[0], enc.nbh, enc.nbv, p.w, p.h,
+                      enc.blk_w, enc.blk_h)
+        errs[tag] = max(max_abs_err(hk.refine_wide(*a[:7], pre, e),
+                                    hk.refine_wide_plain(*a[:7], pre, e))
+                        for pre in (a[7], ep) for e in (1, 2, 3))
+    src, _ref, lay, nbh_l, nb, BW, BH, _pre, _e = wargs
+    p = lay.planes[0]
+    head = lay.margin + p.offset - (48 * p.stride + p.ext)
+    n_cut = 48 * p.stride + p.ext + (p.h + 48) * p.stride
+    ep = edge_pre(rng, dev, src.shape[0], nbh_l, nb // nbh_l, p.w, p.h, BW,
+                  BH)
+    errs["1080p cut to 48 rows around the frame"] = max(
+        wide_cut(wargs, ep, e, head, n_cut) for e in (1, 2, 3))
+    # the windows whose bytes lie before the cut image or past its last
+    # whole chunk: only the chunk clip reads them as the plain version
+    # does, so their agreement above holds the kernel's clipped reads
+    t = torch.arange(nb)
+    bx, by = t % nbh_l * BW, t // nbh_l * BH
+    bw_c, bh_c = (p.w - bx).clamp(0, BW), (p.h - by).clamp(0, BH)
+    dx0, dy0 = (x.cpu().to(torch.int64) for x in ep[:2])
+    whole = n_cut // hk.chunk_width(p.stride) * hk.chunk_width(p.stride)
+    clipped = {}
+    for e in (1, 2, 3):
+        f0 = (48 * p.stride + p.ext + (by + dy0 - 2 * e) * p.stride
+              + bx + dx0 - 2 * e)
+        end = f0 + (bh_c + 4 * e - 1) * p.stride + bw_c + 4 * e
+        clipped[e] = (int((f0 < 0).sum()), int((end > whole).sum()))
+        if min(clipped[e]) == 0:
+            raise AssertionError(f"effort {e}: no window of the cut images "
+                                 "reaches one of their ends")
+    emit({"phase": "effort", "check": "hme_wide_cases", "errors": errs,
+          "windows_past_first_last_chunk": clipped,
+          "seconds": time.perf_counter() - t0})
+    return max(errs.values())
+
+
 def effort_rows(dev, bound, clips):
     """The kernel rows of kernel #2 at level 0 and of `hme_wide`: errors
-    at 1080p and 4K (check_effort_kernels) and at B = 1 on the
-    sequential Encoder's arguments (check_seq_hme at effort 2), times
-    and bounds on the 1080p GOP's arguments at effort 3, the 4K times
-    beside them."""
+    at 1080p and 4K (check_effort_kernels), at B = 1 on the sequential
+    Encoder's arguments (check_seq_hme at effort 2) and, for `hme_wide`,
+    on CIF, 1918x1078 and cut images (check_wide_cases), times and
+    bounds on the 1080p GOP's arguments at effort 3, the 4K times beside
+    them."""
     from dsv1_tpu_torch.ops import hme_kernels as hk
     b1 = check_seq_hme(dev, clips[EFFORT_SEQ_CLIP][1], effort=2)
     out = {}
@@ -1136,6 +1251,8 @@ def effort_rows(dev, bound, clips):
                             ("4k", "4k_effort_cli", 22)):
         err_l, err_w, largs, wargs, enc = check_effort_kernels(
             dev, clips[clip][1], seed)
+        if tag == "1080p":
+            err_w = max(err_w, check_wide_cases(dev, clips, wargs, 23))
         reps = 20 if tag == "1080p" else 10
         lk = lambda: hk.refine_level(*largs)  # noqa: E731
         wk = lambda: hk.refine_wide(*wargs)  # noqa: E731
@@ -1168,7 +1285,8 @@ def effort_rows(dev, bound, clips):
                               f"4K GOP {e4['shape']}; errors also on edge "
                               "inputs, at B = 1 (sequential Encoder, "
                               "effort 2) and, for hme_wide, efforts 1 and "
-                              "2",
+                              "2, B = 1 at every effort, CIF 16x16, "
+                              "1918x1078 and cut images",
                         device_ms=dev_ms, ms_4k=ms4, device_ms_4k=dev_ms4,
                         plain_ms_4k=plain_ms4, bound_ms_4k=b_ms4,
                         **b_extra, **extra))

@@ -27,12 +27,13 @@
 // neighbours, then the same luma cascade. -> hme_wide_kernel
 // (`dsv1_hme_wide`).
 //
-// Bound on an H100: integer work and latency, not bytes. A 1080p GOP's
-// level 0 (11 pairs, 690 blocks of 64x48) reads 54 MB of planes at most
-// once (16 us at 3.35 TB/s) but compares each block pixel with 6
-// candidates and 9 refine points and reduces about 40 sums per block;
-// counted four pixels to an instruction, as below, that is 0.027 ms of
-// INT32 work (0.108 ms as scalar pixel operations).
+// Bound on an H100: integer work and latency. A 1080p GOP's level 0 (11
+// pairs, 690 blocks of 64x48) reads 54 MB of planes at most once (16 us
+// at 3.35 TB/s) and compares each block pixel with 6 candidates and 9
+// refine points and reduces about 40 sums per block; counted as
+// chip_smoke.py hme_bounds counts it (a 4-pixel SAD one
+// VABSDIFF4.U8.ACC, other u8 ops four pixels to an instruction), that
+// is 0.016 ms of INT32 work too (0.085 ms as scalar pixel operations).
 // The coarse levels have few blocks (44 at level 4), so their time is one
 // block's latency, paid once per level.
 //
@@ -72,37 +73,89 @@
 //   candidate outside the border-validity bounds is not read. Picks are
 //   strict first minima in candidate order; unsigned arithmetic is plain
 //   uint32_t.
-// - hme_wide_kernel stages the block as hme_base_kernel does and the
-//   (BH + 2R) x (BW + 2R) window around (dx, dy) in shared memory, read
-//   from the flat level-0 image as the JAX gather reads it (offsets
-//   before the image or past its end clip to its first or last chunk).
-//   Each thread sums its word column against the 2R + 1 shifts of each
-//   offset row from 2 + R/2 words (funnel shifts), a warp sum per
-//   offset; the raster scan's strict first improvement is the least
-//   (SAD, offset index) key. The half-pel grid (up to 80 points, +-2
-//   pixels) reads a 21 x 21 neighbourhood, filtered once; warp 0 takes
-//   the least (SAD, point) key and finishes with hme_base_kernel's code.
-//   At effort 3 a 4K GOP (11 pairs, 2,040 blocks of 64x64) compares
-//   15.4 G pixel pairs; counted as the other bounds here (3 operations
-//   a pair, four pairs to an instruction, with the statistics), that is
-//   0.78 ms of INT32 work (chip_smoke.py work_hme_wide).
 // - Launch shape: kNT = 128 threads and __launch_bounds__(128, 8)
-//   (kMinBlocks), for both search kernels. Of seven (threads, blocks per
-//   SM) shapes it was the fastest at 64x48 (1080p) and 64x64 (4K) blocks
-//   and within 2 % of the fastest at 16x16 (CIF) on an H100 (PERF.md;
-//   tools/torch_hme_probe.py builds and times the others from patched
-//   copies of this file): the level-0 kernel is latency-bound, and at
-//   its natural 144 registers only 3 blocks fit an SM; capped at 64 it
-//   runs 8 and spills 68 bytes.
-//   hme_wide_kernel keeps its window SADs' 2R + 1 sums in registers and
-//   takes __launch_bounds__(128, 4) (kWideMinBlocks): not tuned.
-//   ptxas -v (sm_90a): hme_base_kernel 64 registers, 68 B spill stores
+//   (kMinBlocks), for hme_level_kernel and hme_base_kernel. Of seven
+//   (threads, blocks per SM) shapes it was the fastest at 64x48 (1080p)
+//   and 64x64 (4K) blocks and within 2 % of the fastest at 16x16 (CIF) on
+//   an H100 (PERF.md; tools/torch_hme_probe.py builds and times the
+//   others from patched copies of this file): the level-0 kernel is
+//   latency-bound, and at its natural 144 registers only 3 blocks fit an
+//   SM; capped at 64 it runs 8.
+// - hme_wide_kernel (effort 1..3, window +-R, R = 2 effort): one block
+//   per motion block, 128 threads, in phases (HME_STAMP marks them for
+//   tools/torch_hme_probe.py):
+//   stage: every load issued before the first store: the window rows the
+//     search reads (bh_c + 2R rows of the block's words + effort), one
+//     aligned word per lane and row, realigned with the next lane's word
+//     (a shuffle, a funnel shift), where every such word lies in the
+//     image's whole chunks (there the clip reads each byte where it
+//     lies), else byte by byte through the JAX gather's chunk clip (a
+//     window near the image's first or last chunk); the aligned words around
+//     the union of the half-pel neighbourhoods any pick can use ((21 +
+//     2R)^2, from the plane as hme_base_kernel reads its one: their
+//     readers take any byte offset, so no realigning); the block as
+//     hme_base_kernel stages it.
+//   sums: hme_base_kernel's search-independent sums in one reduction of
+//     19 values, and the intra test; warp 0 reads the totals again from
+//     the reduction's shared partials at the finish, so no thread holds
+//     them through the search.
+//   full-pel: a lane group takes two offset rows oy, oy + 1 and, down its
+//     word column, meets each window row with the two block rows it
+//     pairs with, at the 2R + 1 column shifts of R / 2 + 1 words: a
+//     window row is loaded and shifted once for both, and a 4-pixel SAD
+//     is one VABSDIFF4.U8.ACC (sad_acc; a column with bytes outside the
+//     frame weighs its bytes through IDP.4A). The vertical sums stay in
+//     registers, and one butterfly over the group's lanes per pair of
+//     rows replaces a warp sum per offset (169 a block at effort 3). The
+//     last pair (2R + 1 rows are odd) has no row oy + 1 and sums oy alone
+//     where it is its warp's only pair (2 lane groups a warp, blocks
+//     wider than 32); where it shares a warp its lanes run the two-row
+//     body and skip b's last row, which lies past the window. At 16x16
+//     blocks a warp's 8 lane groups hold every pair, so warp 0 alone
+//     runs this phase: spreading the pairs over the warps would not
+//     shorten a lane's row loop, and the idle warps' slots go to the
+//     SM's other blocks. The raster scan's strict first improvement is
+//     the least (SAD, offset) key.
+//   half-pel: the picked neighbourhood filtered once in shared memory (h,
+//     v and diagonal planes in 24-byte rows); a thread per grid point
+//     (24, 48, 80) sums its 14 rows, 4 words each realigned from 5, with
+//     sad_acc; warp 0 takes the least (SAD, point) key and finishes
+//     with hme_base_kernel's code.
+//   Bound: chip_smoke.py work_hme_wide and hme_bounds, the PERF.md rows'
+//   count: per block pixel a SAD for each of the (4 effort + 1)^2 - 1
+//   offsets and 28 ops for the statistics; per in-frame block a 14x14
+//   SAD for each half-pel point, the three filtered planes once ((15 +
+//   effort)^2 samples each, 9 ops a sample) and 20 ops a window pixel
+//   for its statistics. A 4-pixel SAD is one VABSDIFF4.U8.ACC, which
+//   issues at 62 a clock per SM, as IMAD at 64 (tools/torch_hme_probe.py
+//   --kernels isa, PERF.md); every other op counts four pixels to an
+//   instruction; over 132 SMs x 64 INT32 lanes x 1.98 GHz: at effort 3
+//   0.0700 ms for a 1080p GOP (11 pairs, 690 blocks of 64x48), 0.277 ms
+//   for a 4K GOP (2,040 blocks of 64x64, 15.7 G SAD pixels). The kernel
+//   takes about 3.4 and 2.9 times that (PERF.md).
+//   Launch: __launch_bounds__(128, kWideMinBlocks[effort - 1]), 8, 8 and
+//   7 blocks per SM at efforts 1, 2, 3: of 4 to 8, the fastest for each
+//   effort at 1080p and 4K on an H100, and within 2.6 % of the fastest
+//   at CIF's 16x16 blocks (PERF.md; tools/torch_hme_probe.py
+//   --wide-shapes). Staging waits a global round trip a block, so more
+//   resident blocks beat the registers the caps take (they spill 28-76
+//   B, below). The row loop unrolled once, not twice, ran 10 % faster at
+//   these caps.
+//   ptxas -v (sm_90a): hme_base_kernel 64 registers, 24 B spill stores
 //   and loads, 10,680 B shared; hme_level_kernel 56 registers, no
-//   spills, 288 B shared; hme_cands_kernel 26 registers;
-//   hme_wide_kernel at effort 1 / 2 / 3 96 / 102 / 112 registers, no
-//   spills, 16,888 / 18,472 / 20,632 B shared.
+//   spills, 288 B shared; hme_cands_kernel 26 registers; hme_wide_kernel
+//   at effort 1 / 2 / 3 64 / 64 / 72 registers, 60 / 76 / 28 B spill
+//   stores and loads, 18,832 / 19,776 / 20,912 B shared.
 
 #include "common.cuh"
+
+// Phase stamps of hme_base_kernel and hme_wide_kernel: empty here;
+// tools/torch_hme_probe.py defines them in the patched copies it builds,
+// to read each phase's clock64() cycles.
+#ifndef HME_STAMP
+#define HME_STAMP_START
+#define HME_STAMP(k)
+#endif
 
 using namespace dsv1;
 
@@ -119,9 +172,12 @@ constexpr int kHP = 14;              // HP_SAD_SZ
 constexpr int kNU = 18;              // the part of it the filters read
 constexpr int kPS = 16;              // row stride of the filtered planes
 // the wide search's half-pel neighbourhood: its +-2-pixel grid and the
-// 4-tap filters read 21 x 21 pixels 3 before the centre window
-constexpr int kNUW = 21, kPSW = 20;
-constexpr int kWideMinBlocks = 4;    // hme_wide_kernel's launch bound
+// 4-tap filters read 21 x 21 pixels 3 before the centre window; the
+// filtered planes are kept in rows of 24 bytes, read as words
+constexpr int kNUW = 21, kPSW = 24;
+constexpr int kWinP = 24;            // hme_wide_kernel's window row, words
+// hme_wide_kernel's least blocks per SM at efforts 1, 2, 3 (see above)
+constexpr int kWideMinBlocks[3] = {8, 8, 7};
 constexpr unsigned kOnes = 0x01010101u;
 
 __constant__ int XF[9] = {0, 1, -1, 0, 0, -1, 1, -1, 1};
@@ -173,27 +229,36 @@ __device__ __forceinline__ void quad_bytes(unsigned d, unsigned& good,
   evil = d & __vcmpgtu4(d, 0x02020202u);
 }
 
-// Sums v[0..N) over the thread block; every thread receives the totals.
-// red: __shared__ N * kWarpsNT words used by this call only (one barrier).
-template <int N>
+// The totals of v[K0..N) from block_sum_u's per-warp partials red.
+template <int N, int K0 = 0>
+__device__ __forceinline__ void block_totals(unsigned (&v)[N],
+                                             const unsigned* red) {
+  constexpr int kW = kWarpsNT;
+#pragma unroll
+  for (int k = K0; k < N; ++k) {
+    unsigned s = 0;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) s += red[(k - K0) * kW + i];
+    v[k] = s;
+  }
+}
+
+// Sums v[K0..N) over the thread block; every thread receives the totals.
+// red: __shared__ (N - K0) * kWarpsNT words used by this call only (one
+// barrier), which keep the per-warp partials (block_totals).
+template <int N, int K0 = 0>
 __device__ __forceinline__ void block_sum_u(unsigned (&v)[N],
                                             unsigned* red) {
   constexpr int kW = kWarpsNT;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
 #pragma unroll
-  for (int k = 0; k < N; ++k) v[k] = __reduce_add_sync(0xffffffffu, v[k]);
+  for (int k = K0; k < N; ++k) v[k] = __reduce_add_sync(0xffffffffu, v[k]);
   if (lane == 0) {
 #pragma unroll
-    for (int k = 0; k < N; ++k) red[k * kW + wid] = v[k];
+    for (int k = K0; k < N; ++k) red[(k - K0) * kW + wid] = v[k];
   }
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    unsigned s = 0;
-#pragma unroll
-    for (int i = 0; i < kW; ++i) s += red[k * kW + i];
-    v[k] = s;
-  }
+  block_totals<N, K0>(v, red);
 }
 
 struct Block {
@@ -486,6 +551,16 @@ __device__ __forceinline__ void stage_block(
   const int wpr = BW >> 2;
   load_words(s, sp, S, E + b.by, E + b.bx, m);
   load_words(z, rp, S, E + b.by, E + b.bx, m);
+  const int cx = b.bx + (b.bw_c >> 1) - kHP / 2;
+  const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
+  const uint8_t* c14 = sp + (int64_t)(E + cy) * S + E + cx;
+  constexpr int kC = (kHP * kHP + kNT - 1) / kNT;
+  uint8_t c[kC];  // every load issued before the first store
+#pragma unroll
+  for (int k = 0; k < kC; ++k) {
+    const int p = threadIdx.x + k * kNT, i = p / kHP;
+    c[k] = p < kHP * kHP ? __ldg(c14 + (int64_t)i * S + p - i * kHP) : 0;
+  }
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = m.r0 + i * m.step;
@@ -494,12 +569,10 @@ __device__ __forceinline__ void stage_block(
       s_zero[r * wpr + m.wc] = z[i];
     }
   }
-  const int cx = b.bx + (b.bw_c >> 1) - kHP / 2;
-  const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
-  const uint8_t* c14 = sp + (int64_t)(E + cy) * S + E + cx;
-  for (int p = threadIdx.x; p < kHP * kHP; p += kNT) {
-    const int i = p / kHP;
-    s_c14[p] = __ldg(c14 + (int64_t)i * S + p - i * kHP);
+#pragma unroll
+  for (int k = 0; k < kC; ++k) {
+    const int p = threadIdx.x + k * kNT;
+    if (p < kHP * kHP) s_c14[p] = c[k];
   }
 }
 
@@ -596,35 +669,28 @@ __device__ __forceinline__ unsigned intra_fails(const unsigned (&s)[R],
   return n;
 }
 
-// Filters the NU x NU half-pel neighbourhood at (r0, c0) of the (EH, S)
-// plane rp once into shared memory (row stride PS): hu (NU rows, NU - 3
-// columns) with h8 = its clamp, v8 (NU - 3 rows, PS columns) and d8
-// (NU - 3 square), as the plain version's hu/h8/v8/d8. Synchronises.
-template <int NU, int PS>
-__device__ __forceinline__ void filter_nb(const uint8_t* rp, int S, int r0,
-                                          int c0, uint8_t* s_nb,
-                                          short* s_hu, uint8_t* s_h8,
-                                          uint8_t* s_v8, uint8_t* s_d8) {
-  constexpr int NF = NU - 3;
+// Filters the NU x NU half-pel neighbourhood s_nb (shared memory, row
+// stride NP) into hu (NU rows, NU - 3 columns) with h8 = its clamp, v8
+// (NU - 3 rows, min(PS, NU) columns) and d8 (NU - 3 square), each with
+// row stride PS, as the plain version's hu/h8/v8/d8. Synchronises.
+template <int NU, int PS, int NP>
+__device__ __forceinline__ void filter_planes(const uint8_t* s_nb,
+                                              short* s_hu, uint8_t* s_h8,
+                                              uint8_t* s_v8, uint8_t* s_d8) {
+  constexpr int NF = NU - 3, NV = PS < NU ? PS : NU;
   const int tid = threadIdx.x;
-  const uint8_t* nbp = rp + (int64_t)r0 * S + c0;
-  for (int p = tid; p < NU * NU; p += kNT) {
-    const int i = p / NU;
-    s_nb[p] = __ldg(nbp + (int64_t)i * S + p - i * NU);
-  }
-  __syncthreads();
-  for (int p = tid; p < NU * NF + NF * PS; p += kNT) {
+  for (int p = tid; p < NU * NF + NF * NV; p += kNT) {
     if (p < NU * NF) {
       const int i = p / NF, j = p - i * NF;
-      const uint8_t* n = s_nb + i * NU + j;
+      const uint8_t* n = s_nb + i * NP + j;
       const int hu = 9 * (n[1] + n[2]) - (n[0] + n[3]);
       s_hu[i * PS + j] = (short)hu;
       s_h8[i * PS + j] = (uint8_t)clampi((hu + 8) >> 4, 0, 255);
     } else {
-      const int q = p - NU * NF, i = q / PS, j = q - i * PS;
-      const uint8_t* n = s_nb + i * NU + j;
-      const int vv = 9 * (n[NU] + n[2 * NU]) - (n[0] + n[3 * NU]);
-      s_v8[q] = (uint8_t)clampi((vv + 8) >> 4, 0, 255);
+      const int q = p - NU * NF, i = q / NV, j = q - i * NV;
+      const uint8_t* n = s_nb + i * NP + j;
+      const int vv = 9 * (n[NP] + n[2 * NP]) - (n[0] + n[3 * NP]);
+      s_v8[i * PS + j] = (uint8_t)clampi((vv + 8) >> 4, 0, 255);
     }
   }
   __syncthreads();
@@ -637,12 +703,28 @@ __device__ __forceinline__ void filter_nb(const uint8_t* rp, int S, int r0,
   __syncthreads();
 }
 
+// Loads the NU x NU half-pel neighbourhood at (r0, c0) of the (EH, S)
+// plane rp into s_nb (row stride NU) and filters it (filter_planes).
+template <int NU, int PS>
+__device__ __forceinline__ void filter_nb(const uint8_t* rp, int S, int r0,
+                                          int c0, uint8_t* s_nb,
+                                          short* s_hu, uint8_t* s_h8,
+                                          uint8_t* s_v8, uint8_t* s_d8) {
+  const uint8_t* nbp = rp + (int64_t)r0 * S + c0;
+  for (int p = threadIdx.x; p < NU * NU; p += kNT) {
+    const int i = p / NU;
+    s_nb[p] = __ldg(nbp + (int64_t)i * S + p - i * NU);
+  }
+  __syncthreads();
+  filter_planes<NU, PS, NU>(s_nb, s_hu, s_h8, s_v8, s_d8);
+}
+
 // The 14x14 window of half-pel point (xh, yh) (half-pels from the
 // full-pel centre window, which starts 2 + pad pixels into the
 // neighbourhood): a filtered plane picked by the point's phase, at its
 // pixel offset (xh >> 1, yh >> 1), as the plain version slices them.
-// stride: its row stride.
-template <int NU, int PS>
+// stride: its row stride (NP for s_nb, PS for the filtered planes).
+template <int NU, int PS, int NP = NU>
 __device__ __forceinline__ const uint8_t* hp_win(
     int xh, int yh, int pad, const uint8_t* s_nb, const uint8_t* s_h8,
     const uint8_t* s_v8, const uint8_t* s_d8, int& stride) {
@@ -651,8 +733,8 @@ __device__ __forceinline__ const uint8_t* hp_win(
   if ((xh & 1) && (yh & 1)) return s_d8 + (r - 1) * PS + c - 1;
   if (xh & 1) return s_h8 + r * PS + c - 1;
   if (yh & 1) return s_v8 + (r - 1) * PS + c;
-  stride = NU;
-  return s_nb + r * NU + c;
+  stride = NP;
+  return s_nb + r * NP + c;
 }
 
 // Warp 0 of a block, after the search: the chosen 14x14 window's
@@ -734,6 +816,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
   const uint8_t* rp = a.ref + bb * a.pstride;
   const Block b = block_of(t, a.nbh_l, BW, BH, a.w, a.h);
   const Lanes m = lanes_of(BW, b);
+  HME_STAMP_START
 
   // --- stage: source and zero-MV windows (words), 14x14 centre, cands
   unsigned s[R], z[R];
@@ -744,6 +827,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
     s_cand[NC + tid] = c[NC + tid];
   }
   __syncthreads();
+  HME_STAMP(0);
 
   // --- pass 1: candidate SADs and every search-independent sum
   unsigned v[N1];
@@ -758,6 +842,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
   }
   block_sums(v, s, z, m, b, BW, s_src, s_zero, s_c14);
   block_sum_u(v, red1);
+  HME_STAMP(1);
   int bdx, bdy;
   pick_cand(v, s_cand, NC, 0, b, a.w, a.h, bdx, bdy);
 
@@ -769,6 +854,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
   refine9(rp, S, E + b.by + bdy - 1, E + b.bx + bdx - 1, s, m, v2);
   v2[9] = intra_fails(s, m, ravg0);
   block_sum_u(v2, red2);
+  HME_STAMP(2);
   int best, m9;
   pick9(v2, best, m9);
   const int dx = bdx + XF[m9], dy = bdy + YF[m9];
@@ -778,6 +864,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
   const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
   filter_nb<kNU, kPS>(rp, S, E + cy + dy - 2, E + cx + dx - 2, s_nb, s_hu,
                       s_h8, s_v8, s_d8);
+  HME_STAMP(3);
   const int lane = tid & 31, wid = tid >> 5;
   for (int k = wid; k < 8; k += kW) {
     int ws;
@@ -792,6 +879,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
     if (lane == 0) s_a8[k] = (int)acc;
   }
   __syncthreads();
+  HME_STAMP(4);
   if (wid != 0) return;  // warp 0 finishes the block
 
   const bool do_hp = best > BW * BH && b.inframe;
@@ -813,6 +901,7 @@ __global__ void __launch_bounds__(kNT, kMinBlocks)
                            ss);
   finish_block(a.out, (int64_t)bb * a.nb + t, b, v, v2[9], best, mvx, mvy,
                hp_hit, sel, ss);
+  HME_STAMP(5);
 }
 
 // Byte f (any sign) of a flat image of nch chunks of 2^lcw bytes, read as
@@ -836,29 +925,125 @@ struct WideArgs {
   Outs out;
 };
 
+// acc plus the SAD of the four u8 pairs of s and w, in one
+// VABSDIFF4.U8.ACC: the PTX op adds into acc itself, where
+// __vsadu4(s, w) + acc left ptxas some of the adds apart (52 more
+// IMAD.IADD in hme_wide_kernel<6>, 3-7 % of its time at efforts 2, 3).
+__device__ __forceinline__ unsigned sad_acc(unsigned s, unsigned w,
+                                            unsigned acc) {
+  unsigned d;
+  asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
+      : "=r"(d) : "r"(s), "r"(w), "r"(acc));
+  return d;
+}
+
+// Four u8 SADs added to acc: sad_acc where all four bytes count, else
+// only the bytes that weight wt (0x01 per byte) keeps.
+template <bool kMask>
+__device__ __forceinline__ unsigned sad4(unsigned s, unsigned w,
+                                         unsigned acc, unsigned wt) {
+  return kMask ? __dp4a(absdiff4(s, w), wt, acc) : sad_acc(s, w, acc);
+}
+
+// One window row's words (q: kWords words from the lane's column) against
+// the source words sa (offset row oy0: into a) and sb (oy0 + 1: into b)
+// at the kSide column shifts; kA / kB: whether each counts.
+template <int kSide, int kWords, bool kMask, bool kA, bool kB>
+__device__ __forceinline__ void sad_row2(unsigned sa, unsigned sb,
+                                         const unsigned* q, unsigned wt,
+                                         unsigned (&a)[kSide],
+                                         unsigned (&b)[kSide]) {
+  unsigned wv[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) wv[j] = q[j];
+#pragma unroll
+  for (int ox = 0; ox < kSide; ++ox) {
+    const unsigned w = (ox & 3) ? __funnelshift_r(wv[ox >> 2],
+                                                  wv[(ox >> 2) + 1],
+                                                  8 * (ox & 3))
+                                : wv[ox >> 2];
+    if (kA) a[ox] = sad4<kMask>(sa, w, a[ox], wt);
+    if (kB) b[ox] = sad4<kMask>(sb, w, b[ox], wt);
+  }
+}
+
+// A lane's column sums of offset rows oy0 (a) and oy0 + 1 (b): window
+// row oy0 + k holds block row k of oy0 and block row k - 1 of oy0 + 1,
+// so each window row is loaded and shifted once for both. sq: the
+// column's block rows (stride wpr); q: window row oy0 at the column.
+// kB: whether b is summed at all; b_last: whether its last block row
+// is (not for the last pair, whose row oy0 + 1 is past the window: its
+// last window row would be one past the staged ones).
+template <int kSide, int kWords, bool kMask, bool kB>
+__device__ __forceinline__ void column_sads(const unsigned* sq, int wpr,
+                                            const unsigned* q, int rows,
+                                            unsigned wt, bool b_last,
+                                            unsigned (&a)[kSide],
+                                            unsigned (&b)[kSide]) {
+  unsigned prev = sq[0];
+  sad_row2<kSide, kWords, kMask, true, false>(prev, 0u, q, wt, a, b);
+#pragma unroll 1
+  for (int k = 1; k < rows; ++k) {
+    const unsigned cur = sq[k * wpr];
+    sad_row2<kSide, kWords, kMask, true, kB>(cur, prev, q + k * kWinP, wt,
+                                             a, b);
+    prev = cur;
+  }
+  if (kB && b_last)
+    sad_row2<kSide, kWords, kMask, false, true>(0u, prev, q + rows * kWinP,
+                                                wt, a, b);
+}
+
+// column_sads with kB chosen per warp: a warp whose only pair is the
+// last (pw == kPairs - 1, as at 2 lane groups a warp) sums a alone; in a
+// warp that also holds other pairs the last pair's lanes run the
+// two-row body and skip only b's last row, so the warp does not diverge.
+template <int kSide, int kWords, bool kMask>
+__device__ __forceinline__ void pair_sads(bool alone, const unsigned* sq,
+                                          int wpr, const unsigned* q,
+                                          int rows, unsigned wt, bool b_last,
+                                          unsigned (&a)[kSide],
+                                          unsigned (&b)[kSide]) {
+  if (alone)
+    column_sads<kSide, kWords, kMask, false>(sq, wpr, q, rows, wt, false,
+                                             a, b);
+  else
+    column_sads<kSide, kWords, kMask, true>(sq, wpr, q, rows, wt, b_last,
+                                            a, b);
+}
+
 // One block's level 0 at effort kR / 2: the +-kR full-pel window around
 // the candidate search's (dx, dy), the +-(1 + effort) half-pel grid and
 // the luma cascade.
 template <int kR>
-__global__ void __launch_bounds__(kNT, kWideMinBlocks)
+__global__ void __launch_bounds__(kNT, kWideMinBlocks[kR / 2 - 1])
     hme_wide_kernel(WideArgs a) {
+  HME_STAMP_START
   constexpr int R = kRows, kW = kWarpsNT;
-  constexpr int kSide = 2 * kR + 1, kOff = kSide * kSide;
+  constexpr int kEff = kR / 2, kSide = 2 * kR + 1, kOff = kSide * kSide;
+  constexpr int kPairs = (kSide + 1) / 2;      // offset-row pairs
   constexpr int kWinH = kMaxBlk + 2 * kR;
-  constexpr int kWinP = kMaxBlk + 2 * kR + 8;  // row pitch, bytes
-  constexpr int kWords = kR / 2 + 2;            // words a thread's row reads
-  constexpr int kRH = 1 + kR / 2, kHSide = 2 * kRH + 1;
-  constexpr int kPts = kHSide * kHSide - 1;     // 24, 48, 80
-  static_assert(kWinP % 4 == 0 && kPts < 256 && kOff < 256, "layout");
+  constexpr int kWords = kEff + 1;             // words a lane's row reads
+  constexpr int kRH = 1 + kEff, kHSide = 2 * kRH + 1;
+  constexpr int kPts = kHSide * kHSide - 1;    // 24, 48, 80
+  // every half-pel neighbourhood the search can pick: 21 + 2 kR square,
+  // kept as the aligned words around each row (kNXW a row, the last
+  // only read by the word reads of the grid's last column)
+  constexpr int kNX = kNUW + 2 * kR, kNXW = (kNX + 6) / 4 + 1;
+  constexpr int kNXP = 4 * kNXW;
+  static_assert(kMaxWpr + kEff <= kWinP && kPts <= kNT && kOff < 256,
+                "layout");
   __shared__ unsigned s_src[kMaxBlk * kMaxWpr], s_zero[kMaxBlk * kMaxWpr];
-  __shared__ uint8_t s_c14[kHP * kHP];
-  __shared__ __align__(16) uint8_t s_win[kWinH * kWinP];
-  __shared__ unsigned s_part[kOff * kW];
-  __shared__ uint8_t s_nb[kNUW * kNUW];
+  __shared__ __align__(4) uint8_t s_c14[kHP * kHP];
+  __shared__ unsigned s_cw[kHP * 4];           // s_c14 as words
+  __shared__ unsigned s_win[kWinH * kWinP];
+  __shared__ unsigned s_sad[kOff];
+  __shared__ unsigned s_nbx[kNX * kNXW];
   __shared__ short s_hu[kNUW * kPSW];
-  __shared__ uint8_t s_h8[kNUW * kPSW], s_v8[(kNUW - 3) * kPSW],
-      s_d8[(kNUW - 3) * kPSW];
-  __shared__ unsigned red1[N1 * kW], red2[kW];
+  __shared__ __align__(16) uint8_t s_h8[kNUW * kPSW];
+  __shared__ __align__(16) uint8_t s_v8[(kNUW - 3) * kPSW];
+  __shared__ __align__(16) uint8_t s_d8[(kNUW - 3) * kPSW];
+  __shared__ unsigned red1[(N1 - LS) * kW], s_fails[kW];
   __shared__ int s_a[kPts];
   const int t = blockIdx.x, bb = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, wid = tid >> 5;
@@ -872,71 +1057,156 @@ __global__ void __launch_bounds__(kNT, kWideMinBlocks)
   const Lanes m = lanes_of(BW, b);
   const int64_t o = (int64_t)bb * a.nb + t;
   const int dx0 = a.dx[o], dy0 = a.dy[o], best0 = a.best[o];
+  const int cx = b.bx + (b.bw_c >> 1) - kHP / 2;
+  const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
 
-  // --- stage: the block as hme_base_kernel does, and the (BH + 2 kR) x
-  // (BW + 2 kR) window around (dx0, dy0) from the flat image
+  // --- stage, every load issued before the first wait: the words of the
+  // (bh_c + 2 kR)-row window around (dx0, dy0) that the search reads,
+  // from the flat image as the JAX gather reads it: a lane loads one
+  // aligned word of every row it stages and realigns it with its
+  // neighbour's (a shuffle) where every word lies in the image's whole
+  // chunks (`words`: the rows' aligned words, one more than the window
+  // needs a row), else the window is read byte by byte with the chunk
+  // clip; the aligned words around the union of the half-pel
+  // neighbourhoods the search can pick, from the plane as hme_base_kernel
+  // reads its one (its readers take any byte offset, so they stay as
+  // loaded); then the block as hme_base_kernel stages it
+  const int rows = b.bh_c + 2 * kR;
+  const int nww = ((b.bw_c + 3) >> 2) + kEff;
+  const int64_t f0 = a.org + (int64_t)(b.by + dy0 - kR) * S +
+                     (b.bx + dx0 - kR);
+  const int64_t a0 = f0 & ~(int64_t)3;
+  const int64_t nch = a.n >> a.lcw;
+  const bool words =
+      a0 >= 0 && a0 + (int64_t)(rows - 1) * S + 4 * (nww + 1) <= nch << a.lcw;
+  constexpr int kIw = (kWinH + kW - 1) / kW;
+  unsigned wv[kIw];
+  if (words) {
+    const unsigned* g = reinterpret_cast<const unsigned*>(rf + a0) + lane;
+#pragma unroll
+    for (int i = 0; i < kIw; ++i) {
+      const int r = wid + i * kW;
+      wv[i] = r < rows && lane <= nww ? __ldg(g + (int64_t)r * (S >> 2))
+                                      : 0u;
+    }
+  }
+  const uint8_t* nx = rp + (int64_t)(E + cy + dy0 - kR - 3) * S +
+                      (E + cx + dx0 - kR - 3);
+  const int nxo = (int)(reinterpret_cast<uintptr_t>(nx) & 3);
+  const unsigned* nxw = reinterpret_cast<const unsigned*>(nx - nxo);
+  const int nwx = (nxo + kNX + 3) >> 2;  // words of a row, <= kNXW
+  constexpr int kIx = (kNX * kNXW + kNT - 1) / kNT;
+  unsigned xv[kIx];
+#pragma unroll
+  for (int i = 0; i < kIx; ++i) {
+    const int p = tid + i * kNT, r = p / kNXW, j = p - r * kNXW;
+    xv[i] = r < kNX && j < nwx ? __ldg(nxw + (int64_t)r * (S >> 2) + j) : 0u;
+  }
   unsigned s[R], z[R];
   stage_block(sp, rp, S, E, BW, BH, b, m, s, z, s_src, s_zero, s_c14);
-  {
-    const int64_t f0 = a.org + (int64_t)(b.by + dy0 - kR) * S +
-                       (b.bx + dx0 - kR);
-    const int64_t nch = a.n >> a.lcw;
-    for (int p = tid; p < (BH + 2 * kR) * kWinP; p += kNT) {
-      const int r = p / kWinP, c = p - r * kWinP;
-      s_win[p] = flat_byte(rf, f0 + (int64_t)r * S + c, a.lcw, nch);
+  if (words) {
+    const int sh = 8 * (int)(f0 - a0);
+#pragma unroll
+    for (int i = 0; i < kIw; ++i) {
+      const int r = wid + i * kW;
+      const unsigned hi = __shfl_down_sync(0xffffffffu, wv[i], 1);
+      if (r < rows && lane < nww)
+        s_win[r * kWinP + lane] = __funnelshift_r(wv[i], hi, sh);
     }
+  } else {
+    uint8_t* wb = reinterpret_cast<uint8_t*>(s_win);
+    const int rb = 4 * nww;
+    for (int p = tid; p < rows * rb; p += kNT) {
+      const int r = p / rb, c = p - r * rb;
+      wb[r * 4 * kWinP + c] =
+          flat_byte(rf, f0 + (int64_t)r * S + c, a.lcw, nch);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kIx; ++i) {
+    const int p = tid + i * kNT;
+    if (p < kNX * kNXW) s_nbx[p] = xv[i];
   }
   __syncthreads();
+  HME_STAMP(0);
 
-  // --- the window's SADs: per offset row oy, this thread's word column
-  // against the kSide shifts of its row words; warp sums to s_part
-#pragma unroll 1
-  for (int oy = 0; oy < kSide; ++oy) {
-    unsigned acc[kSide];
-#pragma unroll
-    for (int ox = 0; ox < kSide; ++ox) acc[ox] = 0;
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = m.r0 + i * m.step;
-      if (r >= m.nrows) continue;
-      const unsigned* q =
-          reinterpret_cast<const unsigned*>(s_win + (r + oy) * kWinP) + m.wc;
-      unsigned wv[kWords];
-#pragma unroll
-      for (int j = 0; j < kWords; ++j) wv[j] = q[j];
-#pragma unroll
-      for (int ox = 0; ox < kSide; ++ox) {
-        const unsigned w =
-            __funnelshift_r(wv[ox >> 2], wv[(ox >> 2) + 1], 8 * (ox & 3));
-        acc[ox] = sum4(absdiff4(s[i], w) & m.cm, acc[ox]);
-      }
-    }
-#pragma unroll
-    for (int ox = 0; ox < kSide; ++ox) {
-      const unsigned sum = __reduce_add_sync(0xffffffffu, acc[ox]);
-      if (lane == 0) s_part[(oy * kSide + ox) * kW + wid] = sum;
-    }
-  }
-
-  // --- the search-independent sums (one reduction, whose barrier also
-  // publishes s_part)
+  // --- the search-independent sums, then this warp's block_intra_test
+  // failures (summed after the next barrier); the 14x14 source centre
+  // as words for the half-pel grid
   unsigned v[N1];
 #pragma unroll
   for (int k = 0; k < N1; ++k) v[k] = 0;
   block_sums(v, s, z, m, b, BW, s_src, s_zero, s_c14);
-  block_sum_u(v, red1);
+  block_sum_u<N1, LS>(v, red1);
+  const int yarea = b.bw_c * b.bh_c;
+  const int area = max(yarea, 1);
+  {
+    const unsigned f = __reduce_add_sync(0xffffffffu,
+                                         intra_fails(s, m, (int)v[ZS] / area));
+    if (lane == 0) s_fails[wid] = f;
+    if (tid < kHP * 4) {  // row tid / 4, bytes 4 (tid % 4) on, 14 a row
+      const int i = tid >> 2, j = tid & 3;
+      const unsigned short* c =
+          reinterpret_cast<const unsigned short*>(s_c14 + i * kHP + 4 * j);
+      s_cw[tid] = c[0] | (j < 3 ? (unsigned)c[1] << 16 : 0u);
+    }
+  }
+  HME_STAMP(1);
+
+  // --- the window's SADs. A lane group of a warp takes the offset rows
+  // oy0 = 2 p and 2 p + 1 (p its pair) and sums, down its word column wc,
+  // each window row against the two block rows it meets at the kSide
+  // column shifts (kWords words, funnel shifts): the vertical sums stay
+  // in registers, and one butterfly over the group's lanes gives the
+  // pair's 2 kSide SADs. Lane = g + G wc, G = 32 / (words per block row
+  // rounded up to a power of 2); the G groups of a warp take pairs next
+  // to each other, whose rows lie 2 apart: 16 banks (row pitch kWinP =
+  // 24 words). A column with bytes outside the frame weighs its bytes.
+  {
+    const int wpr = BW >> 2;
+    const int lw = 32 - __clz(wpr - 1);  // log2 of wpr, rounded up
+    const int G = 32 >> lw, g = lane & (G - 1), wc = lane >> (5 - lw);
+    const unsigned wt = wc < wpr ? col_mask(wc, 0, b.bw_c) & kOnes : 0u;
+    for (int pw = wid * G; pw < kPairs; pw += kW * G) {
+      const int p = pw + g, oy0 = 2 * p;
+      unsigned sa[kSide], sb[kSide];
+#pragma unroll
+      for (int ox = 0; ox < kSide; ++ox) sa[ox] = sb[ox] = 0;
+      if (p < kPairs && wt && b.bh_c) {
+        const unsigned* q = s_win + oy0 * kWinP + wc;
+        const bool alone = pw == kPairs - 1, b_last = oy0 + 1 < kSide;
+        if (wt == kOnes)
+          pair_sads<kSide, kWords, false>(alone, s_src + wc, wpr, q, b.bh_c,
+                                          wt, b_last, sa, sb);
+        else
+          pair_sads<kSide, kWords, true>(alone, s_src + wc, wpr, q, b.bh_c,
+                                         wt, b_last, sa, sb);
+      }
+#pragma unroll
+      for (int ox = 0; ox < kSide; ++ox)
+        for (int off = G; off < 32; off <<= 1) {
+          sa[ox] += __shfl_xor_sync(0xffffffffu, sa[ox], off);
+          sb[ox] += __shfl_xor_sync(0xffffffffu, sb[ox], off);
+        }
+      if (p < kPairs && wc == 0) {
+#pragma unroll
+        for (int ox = 0; ox < kSide; ++ox) {
+          s_sad[oy0 * kSide + ox] = sa[ox];
+          if (oy0 + 1 < kSide) s_sad[(oy0 + 1) * kSide + ox] = sb[ox];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  HME_STAMP(2);
 
   // --- the raster scan with strict improvement is the first offset of
   // least SAD, taken if below best0: each warp takes the least
   // (SAD, offset) key (SAD < 2^21)
   unsigned key = ~0u;
-  for (int k = lane; k < kOff; k += 32) {
-    if (k == kOff / 2) continue;  // the centre: its SAD is best0
-    unsigned sum = 0;
-#pragma unroll
-    for (int i = 0; i < kW; ++i) sum += s_part[k * kW + i];
-    key = min(key, (sum << 8) | (unsigned)k);
-  }
+  for (int k = lane; k < kOff; k += 32)
+    if (k != kOff / 2)  // the centre: its SAD is best0
+      key = min(key, (s_sad[k] << 8) | (unsigned)k);
   key = __reduce_min_sync(0xffffffffu, key);
   int best = best0, dx = dx0, dy = dy0;
   if ((int)(key >> 8) < best0) {
@@ -945,35 +1215,45 @@ __global__ void __launch_bounds__(kNT, kWideMinBlocks)
     dx = dx0 + k % kSide - kR;
     dy = dy0 + k / kSide - kR;
   }
-
-  // --- block_intra_test
-  const int yarea = b.bw_c * b.bh_c;
-  const int area = max(yarea, 1);
-  unsigned fails[1] = {intra_fails(s, m, (int)v[ZS] / area)};
-  block_sum_u(fails, red2);
+  unsigned fails = 0;
+#pragma unroll
+  for (int i = 0; i < kW; ++i) fails += s_fails[i];
+  HME_STAMP(3);
 
   // --- the half-pel grid: points k in row-major order over (yh, xh) in
   // [-kRH, kRH]^2 without the centre, on the neighbourhood 3 pixels
-  // before the centre window
-  const int cx = b.bx + (b.bw_c >> 1) - kHP / 2;
-  const int cy = b.by + (b.bh_c >> 1) - kHP / 2;
-  filter_nb<kNUW, kPSW>(rp, S, E + cy + dy - 3, E + cx + dx - 3, s_nb,
-                        s_hu, s_h8, s_v8, s_d8);
-  for (int k = wid; k < kPts; k += kW) {
-    const int g = k < kPts / 2 ? k : k + 1;
+  // before the centre window (in s_nbx since staging), filtered once
+  const uint8_t* s_nb = reinterpret_cast<const uint8_t*>(s_nbx) + nxo +
+                       (dy - dy0 + kR) * kNXP + (dx - dx0 + kR);
+  filter_planes<kNUW, kPSW, kNXP>(s_nb, s_hu, s_h8, s_v8, s_d8);
+  HME_STAMP(4);
+  // a thread per point: each row of its 14x14 window, 14 bytes read as 4
+  // words realigned from 5, against the centre's words
+  if (tid < kPts) {
+    const int gi = tid < kPts / 2 ? tid : tid + 1;
     int ws;
-    const uint8_t* win =
-        hp_win<kNUW, kPSW>(g % kHSide - kRH, g / kHSide - kRH, 1, s_nb, s_h8,
-                           s_v8, s_d8, ws);
+    const uint8_t* win = hp_win<kNUW, kPSW, kNXP>(
+        gi % kHSide - kRH, gi / kHSide - kRH, 1, s_nb, s_h8, s_v8, s_d8, ws);
+    const uintptr_t pw = reinterpret_cast<uintptr_t>(win);
+    const unsigned* q = reinterpret_cast<const unsigned*>(pw & ~(uintptr_t)3);
+    const int sh = 8 * (int)(pw & 3), wsw = ws >> 2;
     unsigned acc = 0;
-    for (int p = lane; p < kHP * kHP; p += 32) {
-      const int i = p / kHP, j = p - i * kHP;
-      acc += absi((int)s_c14[p] - (int)win[i * ws + j]);
+#pragma unroll 2
+    for (int i = 0; i < kHP; ++i) {
+      const unsigned* qi = q + i * wsw;
+      unsigned wv[5];
+#pragma unroll
+      for (int j = 0; j < 5; ++j) wv[j] = qi[j];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned w = __funnelshift_r(wv[j], wv[j + 1], sh);
+        acc = sad_acc(s_cw[4 * i + j], j < 3 ? w : w & 0xffffu, acc);
+      }
     }
-    acc = __reduce_add_sync(0xffffffffu, acc);
-    if (lane == 0) s_a[k] = (int)acc;
+    s_a[tid] = (int)acc;
   }
   __syncthreads();
+  HME_STAMP(5);
   if (wid != 0) return;  // warp 0 finishes the block
 
   unsigned hkey = ~0u;  // (SAD < 2^16, point)
@@ -984,17 +1264,19 @@ __global__ void __launch_bounds__(kNT, kWideMinBlocks)
   const bool do_hp = best > BW * BH && b.inframe;
   const bool hp_hit = do_hp && run_best < best * (kHP * kHP) / area;
   int xh = 0, yh = 0;
-  const uint8_t* sel = s_nb + 3 * kNUW + 3;
-  int ss = kNUW;
+  const uint8_t* sel = s_nb + 3 * kNXP + 3;
+  int ss = kNXP;
   if (hp_hit) {
     const int k = (int)(hkey & 255u), g = k < kPts / 2 ? k : k + 1;
     xh = g % kHSide - kRH;
     yh = g / kHSide - kRH;
     best = run_best * yarea / (kHP * kHP);
-    sel = hp_win<kNUW, kPSW>(xh, yh, 1, s_nb, s_h8, s_v8, s_d8, ss);
+    sel = hp_win<kNUW, kPSW, kNXP>(xh, yh, 1, s_nb, s_h8, s_v8, s_d8, ss);
   }
-  finish_block(a.out, o, b, v, fails[0], best, 2 * dx + xh, 2 * dy + yh,
+  block_totals<N1, LS>(v, red1);  // not kept in registers till here
+  finish_block(a.out, o, b, v, fails, best, 2 * dx + xh, 2 * dy + yh,
                hp_hit, sel, ss);
+  HME_STAMP(6);
 }
 
 bool bad_block(int BW, int BH) {

@@ -172,6 +172,25 @@ def test_refine_wide_plain_matches_jax(w, h, BW, BH, effort, seed):
                                           err_msg=f"{key} pair {b}")
 
 
+@pytest.mark.parametrize("effort", [0, 4])
+def test_refine_wide_rejects_effort_before_any_launch(effort, monkeypatch):
+    """`refine_wide` refuses an effort outside 1..3 before it launches a
+    kernel or runs its plain version."""
+    from dsv1_tpu_torch.kernels import build as kb
+    calls = []
+    monkeypatch.setattr(kb, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(hk, "refine_wide_plain", lambda *a: calls.append(a))
+    before = dict(kb.LAUNCHES)
+    w, h, BW, BH = 64, 48, 16, 16
+    lay = tfr.make_layout(SUBSAMP_420, w, h, True)
+    img = torch.zeros((1, lay.total + 2 * lay.margin), dtype=torch.uint8)
+    nb = (w // BW) * (h // BH)
+    pre = tuple(torch.zeros((1, nb), dtype=torch.int32) for _ in range(3))
+    with pytest.raises(ValueError, match="effort must be 1, 2 or 3"):
+        hk.refine_wide(img, img, lay, w // BW, nb, BW, BH, pre, effort)
+    assert not calls and dict(kb.LAUNCHES) == before
+
+
 HME_CASES = [
     pytest.param(1, 3, 96, 80, "xla"),
     pytest.param(1, 3, 96, 80, "pallas", marks=pytest.mark.slow),

@@ -20,9 +20,10 @@ of the first GOP, as chip_smoke.py picks it):
   them (the coarse levels, one `refine_coarse` call or, on a tree from
   before it, one `refine_level` call per level; level 0);
 - where the port has the wider level-0 search (effort 1..3),
-  `hme.hme_batch` of those GOPs at effort 3 and its level-0 wrappers:
-  kernel #2 at level 0 (`refine_level`) and `refine_wide` at efforts 1,
-  2 and 3.
+  `hme.hme_batch` of those GOPs and of the CIF clip's (16x16 blocks) at
+  effort 3 and its level-0 wrappers: kernel #2 at level 0
+  (`refine_level`) and `refine_wide` at efforts 1, 2 and 3, on the GOP
+  and on its first pair alone (B = 1).
 
 For each: the CUDA-event mean per call over a loop of calls (the
 wrappers' host work included), the device time per call summed from
@@ -231,7 +232,8 @@ def hme_effort_cases(dev, clip, effort=3):
     """The wider level-0 search of a clip's first GOP where the port has
     it (`hme_kernels.refine_wide`): `hme.hme_batch` at `effort`, and the
     wrappers of its level 0 on the arguments it passes them: kernel #2
-    at level 0 (`refine_level`) and `refine_wide` at efforts 1..3."""
+    at level 0 (`refine_level`) and `refine_wide` at efforts 1..3, also
+    on the first pair alone (B = 1)."""
     from dsv1_tpu_torch.ops import hme_kernels as hk
     if not hasattr(hk, "refine_wide"):
         return []
@@ -244,10 +246,14 @@ def hme_effort_cases(dev, clip, effort=3):
             timed(f"refine_level level 0 {clip} GOP ({enc.blk_w}x"
                   f"{enc.blk_h})", lambda: hk.refine_level(*largs), 20,
                   "hme_")]
+    one = (wargs[0][:1], wargs[1][:1], *wargs[2:7],
+           tuple(t[:1] for t in wargs[7]))
     for e in (1, 2, 3):
         a = (*wargs[:-1], e)
         rows.append(timed(f"refine_wide effort {e} {clip} GOP", lambda a=a:
                           hk.refine_wide(*a), 20, "hme_"))
+        rows.append(timed(f"refine_wide effort {e} {clip} pair 0 (B = 1)",
+                          lambda a=(*one, e): hk.refine_wide(*a), 20, "hme_"))
     return rows
 
 
@@ -321,7 +327,8 @@ def main():
     if "hme" in only:
         rows += hme_cases(dev, "1080p") + hme_cases(dev, "4k_cli")
         rows += (hme_effort_cases(dev, "1080p")
-                 + hme_effort_cases(dev, "4k_cli"))
+                 + hme_effort_cases(dev, "4k_cli")
+                 + hme_effort_cases(dev, "cif"))
     if args.e2e:
         rows.append(e2e_case(dev, args.e2e, args.e2e_clip))
     res = {"root": str(Path(dsv1_tpu_torch.__file__).parent.parent),
