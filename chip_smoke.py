@@ -22,7 +22,17 @@ non-zero:
    1080p luma P plane and I plane, a 4K luma P plane and a few odd
    shapes. The HME kernels are also held to their plain versions (errors
    only) on a 1918x1078 clip, with the encoder's candidates and with
-   fuzzed ones far past the border clamps. Equality is exact (tolerance
+   fuzzed ones far past the border clamps. Then the recon chain's
+   kernels (`recon_rows`): `residual_in` (`bmc.residual_in`, the
+   prologue of a frame's three planes), `b4t_fwd` (`sbt.b4t_fwd`, the
+   intra level 1), `hzcc_quant` and `hzcc_dequant`
+   (`hzcc.encode_plane_core`, `dequant_plane_grid`) and `inv_sbt`
+   (`sbt.inv_sbt`, and `inv_sbt_recon` with the recon epilogue into the
+   frame image), stage by stage on CIF, 1080p and 4K golden frames, I
+   and P, every plane, B = 1 and batched with a quant per frame, fuzzed
+   coefficients, 100x84 (aliasing bands), 98x82, and 4:2:2 and 4:1:1
+   chroma; each timed on its 1080p unit (a luma plane; the prologue a
+   frame), with 4K and CIF beside it. Equality is exact (tolerance
    0: the codec is integer-only). Each kernel is timed with CUDA events
    after warm-up, wrappers included, and with torch.profiler's kernel
    sums (device only). Each row gets the least time the card could take
@@ -38,7 +48,9 @@ non-zero:
    its plain version on 4:2:2 and 4:1:1 frames (96x80 and 1920x1080,
    fuzzed fields), which joins the `mc` row's error.
 5. slice   — the CIF and 1080p golden clips (gop 12, qp 85 CRF, 24
-   frames) through `encode_stream_gops` and `decode_stream_gops`.
+   frames) through `encode_stream_gops` and `decode_stream_gops`; the
+   1080p encode and decode again (outside the counts) for their kernels
+   per frame and device busy share (`run_metrics`).
 6. cli     — the CLI's default path (per-frame ABR, auto bitrate, gop
    12): `dsv1_tpu_torch.cli.main` e then d on the CIF clip (24 frames)
    and on a 3840x2160 clip (13 frames), through files; then
@@ -83,7 +95,8 @@ non-zero:
    GOPs a chunk, then a tail GOP of 4 frames padded to a chunk; every P
    call carries 4 frames) with its frames/s, kernels per encoded frame
    and device busy share (tools/torch_profile.py) at the default and at
-   gops_per_device=1, whose stream must be the same bytes;
+   gops_per_device=1, whose stream must be the same bytes, and its
+   decode's;
    `cif_batch_cut` (40 frames, stable_refresh 4, a cut in the second
    GOP: GOPs start from carried stability states, and a frame index
    splits into P and intra frames); `1080p_gopabr_batch` (37 frames,
@@ -119,12 +132,16 @@ launched on it (`mc`, `hme_refine`, `hme_base` and `haar_fwd` on the
 slice, CLI and sequential encodes, `hme_wide` in place of `hme_base` on
 the effort encodes, with `hme_refine_level0`: the level-0 launches,
 also counted in `hme_refine`; `haar_fwd` and neither `mc` nor HME on
-the gop-0 encode, `mc` on the decoders), and each count must equal the count
+the gop-0 encode, `mc` on the decoders; `residual_in`, `b4t_fwd`,
+`hzcc_quant` and `inv_sbt` on the encodes, not `inv_sbt` at gop 0,
+`hzcc_dequant` and `inv_sbt` on the decoders), and each count must
+equal the count
 predicted from what the path did (`dsv1_tpu_torch/utils/stats.py`
 STATS: calls of the encode core on intra and on P frames, each a frame
 or the frames of one type at one frame index of a chunk, HME calls at
-effort 0 and above, one a chunk, MC calls of the decoders: a frame
-index of a chunk of chains, or a picture of the sequential `Decoder`)
+effort 0 and above, one a chunk, MC calls and reconstructions of the
+decoders: a frame index of a chunk of chains, or a picture of the
+sequential `Decoder`)
 and from each wrapper's launches per call at the clip's geometry
 (`predict_launches`). Each encode prints its `overflow_redos`: the
 chunks of GOPs (gop 0: chunks of frames; sequential: frames) whose
@@ -158,11 +175,21 @@ HP_PIXELS = 14 * 14        # a half-pel SAD window
 FILTER_OPS = 9             # a filtered sample: 4 taps, rounding, clamp
 # `hme_refine_level0` counts `hme_refine`'s level-0 launches apart
 KERNELS = ("mc", "hme_refine", "hme_refine_level0", "hme_base", "hme_wide",
-           "haar_fwd")
-# the kernels of an encode at effort 0 and at effort 1..3
-BASE_PATH = ("mc", "hme_refine", "hme_base", "haar_fwd")
+           "haar_fwd", "residual_in", "b4t_fwd", "hzcc_quant",
+           "hzcc_dequant", "inv_sbt")
+# the recon chain's kernels of an encode (csrc/recon.cu, csrc/hzcc.cu)
+# and of a decode
+ENC_RECON = ("residual_in", "b4t_fwd", "hzcc_quant", "inv_sbt")
+DEC_RECON = ("hzcc_dequant", "inv_sbt")
+# the kernels of an encode at effort 0 and at effort 1..3, of a decode
+BASE_PATH = ("mc", "hme_refine", "hme_base", "haar_fwd") + ENC_RECON
 WIDE_PATH = ("mc", "hme_refine", "hme_refine_level0", "hme_wide",
-             "haar_fwd")
+             "haar_fwd") + ENC_RECON
+DECODE_PATH = ("mc",) + DEC_RECON
+# a gop x tile encode: the tiled transforms run their B4T and inverse
+# levels eager (parallel/tile.py), and on the kernels only for planes
+# too narrow to split (`tiled_whole`), which predict_launches counts
+TILE_PATH = tuple(k for k in BASE_PATH if k not in ("b4t_fwd", "inv_sbt"))
 SLICE_CLIPS = ("cif", "1080p")     # encode_stream_gops, CRF
 # the CLI at its defaults (per-frame ABR), then GOP-granular ABR
 CLI_CLIPS = ("cif_cli", "4k_cli", "1080p_gopabr_cli")
@@ -582,6 +609,271 @@ def check_mc(dev, enc, imgs, mv, seed):
             int(mv["nintra"][k]))
 
 
+# per-position integer operations of the recon kernels' algorithms (the
+# bound's operation count; each is bound by bytes at these rates): the
+# prologue's subtract, add, clamp and centring; a B4T output's two 1-D
+# taps (4 products and sums, a sign-symmetric round, a pass each way);
+# the quantizer's TMQ, |v|, the truncating division (about 20
+# instructions) and the write-back; the dequantizer's multiply-add;
+# the inverse's butterfly, / 4, the luma nudge (about 30 per quad, on
+# two of its bands) and the epilogue's clamps, a third more for the
+# coarser levels
+RECON_OPS = {"residual_in": 5, "b4t_fwd": 22, "hzcc_quant": 35,
+             "hzcc_dequant": 8, "inv_sbt": 27}
+
+
+def work_recon(name, dims, planes, is_p, N=0, ext=0):
+    """(bytes, ops) of one recon kernel call on one plane (dims (cw, ch),
+    planes [(h, w)]) or, for `residual_in`, a frame's three: each input
+    read once and each output written once. residual_in: the u8 frame
+    (and prediction) in, int32 coefficients out; b4t_fwd: int32 in,
+    int32 out and the int32 LL copy; hzcc_quant: int32 in, the int32
+    grid and its N traversal values out; hzcc_dequant: int32 in and out;
+    inv_sbt (the recon): int32 coefficients (and the u8 prediction) in,
+    the u8 plane with its `ext` border out."""
+    if name == "residual_in":
+        n_c = sum(cw * ch for cw, ch in dims)
+        n_p = sum(h * w for h, w in planes)
+        return n_p * (1 + is_p) + 4 * n_c, RECON_OPS[name] * n_c
+    (cw, ch), (h, w) = dims[0], planes[0]
+    n = cw * ch
+    nbytes = {"b4t_fwd": 4 * n + 4 * n + n,
+              "hzcc_quant": 8 * n + 4 * N,
+              "hzcc_dequant": 8 * n,
+              "inv_sbt": 4 * n + h * w * is_p
+              + (h + 2 * ext) * (w + 2 * ext)}[name]
+    return nbytes, RECON_OPS[name] * n
+
+
+def recon_frames(dev, subsamp, frames, C, seed):
+    """C frames of a clip (or random frames, `frames` a (w, h) pair) as a
+    batch for the recon chain: (layout, coefficient dims, traversal
+    tables, images (C, n) u8, the three predictions (C, h, w) u8 as
+    views of one buffer as compensate_frame gives them, per-block stable
+    flags (C, nblk) u8 with every value the encoder gives)."""
+    import numpy as np
+    import torch
+
+    from dsv1_tpu_torch.models.encoder import block_geometry, coef_geometry
+    from dsv1_tpu_torch.ops import frame as fr
+    rng = np.random.default_rng(seed)
+    if isinstance(frames, tuple):
+        w, h = frames
+    else:
+        h, w = frames[0][0].shape
+    _bw, _bh, nbh, nbv = block_geometry(w, h)
+    layout, dims, tables = coef_geometry(subsamp, w, h, nbh, nbv)
+
+    def batch(k0):
+        if isinstance(frames, tuple):
+            return [torch.from_numpy(rng.integers(0, 256, (C, p.h, p.w))
+                                     .astype(np.uint8)).to(dev)
+                    for p in layout.planes]
+        return [torch.from_numpy(np.stack([
+            np.asarray(frames[k0 + k][c], np.uint8) for k in range(C)]))
+            .to(dev) for c in range(3)]
+    img = fr.image_from_planes(layout, batch(1))
+    flat = torch.cat([p.reshape(C, -1) for p in batch(0)], -1)
+    preds, off = [], 0
+    for p in layout.planes:
+        preds.append(flat[:, off:off + p.h * p.w].unflatten(-1, (p.h, p.w)))
+        off += p.h * p.w
+    stable = torch.from_numpy(rng.integers(0, 4, (C, nbh * nbv))
+                              .astype(np.uint8)).to(dev)
+    return layout, dims, tables, img, tuple(preds), stable
+
+
+def qgrid_of(qv, tables, shape):
+    """The decoder's grid `shape` (C, H, W) of traversal values qv (C,
+    N): the parser's scatter, later segments winning where bands
+    alias."""
+    import numpy as np
+    import torch
+    q = qv.cpu().numpy()
+    g = np.zeros((q.shape[0], shape[-2] * shape[-1]), np.int32)
+    for b in range(q.shape[0]):
+        g[b][tables.perm] = q[b]   # sequential: the last write wins
+    return torch.from_numpy(g.reshape(shape)).to(qv.device)
+
+
+def check_recon_chain(dev, case, is_p, q, fuzz=False):
+    """The recon chain of a batch (`recon_frames`), each kernel against
+    its plain version on the same inputs, stage by stage: residual_in;
+    per plane b4t_fwd (intra), hzcc_quant on fwd_sbt's coefficients
+    (random int32 values up to +-2^15 with `fuzz`), hzcc_dequant on its
+    values as the parser's grid, inv_sbt (int32) and the recon
+    (inv_sbt_recon into frame images, with the prediction for P). q: a
+    python int, or a quant per frame (a list). Returns {kernel:
+    max_abs_err}."""
+    import numpy as np
+    import torch
+
+    from dsv1_tpu_torch.ops import bmc, hzcc, sbt
+    layout, dims, tables, img, preds, stable = case
+    C = img.shape[0]
+    qq = (torch.tensor(q, dtype=torch.int32, device=dev)
+          if isinstance(q, list) else q)
+    pr = preds if is_p else None
+    err = {}
+
+    def put(k, a, b):
+        err[k] = max(err.get(k, 0), max_abs_err(a, b))
+    planes = bmc.residual_in(img, layout, dims, pr)
+    put("residual_in", planes, bmc.residual_in_plain(img, layout, dims, pr))
+    n = layout.total + 2 * layout.margin
+    rec_k = torch.zeros((C, n), dtype=torch.uint8, device=dev)
+    rec_p = rec_k.clone()
+    rng = np.random.default_rng(C * 7 + is_p)
+    for c in range(3):
+        x = planes[c]
+        if not is_p:
+            put("b4t_fwd", sbt.b4t_fwd(x), sbt.b4t_fwd_plain(x))
+        coefs = sbt.fwd_sbt(x, is_p)
+        if fuzz:
+            coefs = torch.from_numpy(rng.integers(
+                -2**15, 2**15, tuple(coefs.shape)).astype(np.int32)).to(dev)
+        qv, wb = hzcc.encode_plane_core(coefs, qq, is_p, c, stable,
+                                        tables[c])
+        put("hzcc_quant", (qv, wb), hzcc.encode_plane_core_plain(
+            coefs, qq, is_p, c, stable, tables[c]))
+        qg = qgrid_of(qv, tables[c], tuple(coefs.shape))
+        dc = coefs[:, 0, 0].contiguous()
+        put("hzcc_dequant",
+            hzcc.dequant_plane_grid(qg, dc, qq, is_p, c, stable, tables[c]),
+            hzcc.dequant_plane_grid_plain(qg, dc, qq, is_p, c, stable,
+                                          tables[c]))
+        put("inv_sbt", sbt.inv_sbt(wb, qq, is_p, c == 0),
+            sbt.inv_sbt_plain(wb, qq, is_p, c == 0))
+        sbt.inv_sbt_recon(wb, qq, is_p, c == 0, rec_k, layout, c,
+                          pr[c] if is_p else None)
+        sbt.recon_epilogue_plain(sbt.inv_sbt_plain(wb, qq, is_p, c == 0),
+                                 rec_p, layout, c, pr[c] if is_p else None)
+    put("inv_sbt", rec_k, rec_p)
+    return err
+
+
+def recon_rows(dev, bound, clips):
+    """The recon chain's kernels against their plain versions
+    (check_recon_chain) on CIF, 1080p and 3840x2160 golden frames, I and
+    P, every plane, one frame (B = 1, the encoder's python-int quant)
+    and batched with a quant per frame (CIF 4, 1080p 3, 4K 2; chroma
+    quants past CHROMA_LIMIT too), on fuzzed coefficients at 1080p, and
+    on random frames at 100x84 (aliasing bands), 98x82 (odd chroma dims
+    rounded up) and 4:2:2 and 4:1:1 at 96x80 and 1920x1080; then each
+    kernel timed on the main path's unit of work at 1080p (a luma plane,
+    residual_in a frame; the recon with its P prediction), with *_4k and
+    *_cif beside it. Returns the rows and each case's errors."""
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.ops import bmc, hzcc, sbt
+    cases, worst = [], {}
+    batches = {"cif": 4, "1080p": 3, "4k_cli": 2}
+    built = {}
+    for name, C in batches.items():
+        frames = clips[name][1]
+        built[name] = recon_frames(dev, dt.SUBSAMP_420, frames, 1, 5)
+        big = recon_frames(dev, dt.SUBSAMP_420, frames, C, 6)
+        runs = [("B=1", built[name], 300, False),
+                (f"B={C}", big, [85, 1540, 300, 4000][:C], False)]
+        if name == "1080p":
+            runs.append(("fuzz", big, [700, 90, 3000, 160][:C], True))
+        for is_p in (False, True):
+            for tag, case, q, fuzz in runs:
+                e = check_recon_chain(dev, case, is_p, q, fuzz)
+                cases.append({"case": f"{name} {tag} "
+                              f"{'P' if is_p else 'I'}", "errors": e})
+        del big
+    for (w, h), ss in (((100, 84), dt.SUBSAMP_420),
+                       ((98, 82), dt.SUBSAMP_420),
+                       ((96, 80), dt.SUBSAMP_422),
+                       ((96, 80), dt.SUBSAMP_411),
+                       ((1920, 1080), dt.SUBSAMP_422),
+                       ((1920, 1080), dt.SUBSAMP_411)):
+        case = recon_frames(dev, ss, (w, h), 3, w + ss)
+        fmt = {dt.SUBSAMP_420: "4:2:0", dt.SUBSAMP_422: "4:2:2",
+               dt.SUBSAMP_411: "4:1:1"}[ss]
+        for is_p in (False, True):
+            e = check_recon_chain(dev, case, is_p, [85, 600, 1540])
+            cases.append({"case": f"{w}x{h} {fmt} "
+                          f"{'P' if is_p else 'I'} B=3", "errors": e})
+    for c in cases:
+        for k, v in c["errors"].items():
+            worst[k] = max(worst.get(k, 0), v)
+
+    def unit(name, key):
+        """(fn, plain fn, work) of a kernel's unit of work on clip
+        `name`'s frame: the 1080p luma plane (residual_in: the frame)."""
+        layout, dims, tables, img, preds, stable = built[name]
+        p0 = layout.planes[0]
+        pl = [(p.h, p.w) for p in layout.planes]
+        planes = bmc.residual_in(img, layout, dims, preds)
+        if key == "residual_in":
+            return (lambda: bmc.residual_in(img, layout, dims, preds),
+                    lambda: bmc.residual_in_plain(img, layout, dims, preds),
+                    work_recon(key, dims, pl, True))
+        if key == "b4t_fwd":
+            x = bmc.residual_in(img, layout, dims, None)[0]
+            return (lambda: sbt.b4t_fwd(x), lambda: sbt.b4t_fwd_plain(x),
+                    work_recon(key, dims[:1], pl[:1], False))
+        coefs = sbt.fwd_sbt(planes[0], True)
+        qv, wb = hzcc.encode_plane_core(coefs, 300, True, 0, stable,
+                                        tables[0])
+        if key == "hzcc_quant":
+            return (lambda: hzcc.encode_plane_core(coefs, 300, True, 0,
+                                                   stable, tables[0]),
+                    lambda: hzcc.encode_plane_core_plain(
+                        coefs, 300, True, 0, stable, tables[0]),
+                    work_recon(key, dims[:1], pl[:1], True, tables[0].n))
+        if key == "hzcc_dequant":
+            qg = qgrid_of(qv, tables[0], tuple(coefs.shape))
+            return (lambda: hzcc.dequant_plane_grid(
+                        qg, 5, 300, True, 0, stable, tables[0]),
+                    lambda: hzcc.dequant_plane_grid_plain(
+                        qg, 5, 300, True, 0, stable, tables[0]),
+                    work_recon(key, dims[:1], pl[:1], True))
+        rec = torch.zeros_like(img)
+        return (lambda: sbt.inv_sbt_recon(wb, 300, True, True, rec, layout,
+                                          0, preds[0]),
+                lambda: sbt.recon_epilogue_plain(
+                    sbt.inv_sbt_plain(wb, 300, True, True), rec, layout, 0,
+                    preds[0]),
+                work_recon(key, dims[:1], pl[:1], True, ext=p0.ext))
+
+    rows = []
+    sources = {"residual_in": ("dsv1_tpu_torch/csrc/recon.cu",
+                               "dsv1_tpu/models/encoder.py:219"),
+               "b4t_fwd": ("dsv1_tpu_torch/csrc/recon.cu",
+                           "dsv1_tpu/ops/sbt.py:288"),
+               "hzcc_quant": ("dsv1_tpu_torch/csrc/hzcc.cu",
+                              "dsv1_tpu/ops/hzcc.py:191"),
+               "hzcc_dequant": ("dsv1_tpu_torch/csrc/hzcc.cu",
+                                "dsv1_tpu/ops/hzcc.py:236"),
+               "inv_sbt": ("dsv1_tpu_torch/csrc/recon.cu",
+                           "dsv1_tpu/ops/sbt.py:434")}
+    for key, (src, rep) in sources.items():
+        fn, plain, work = unit("1080p", key)
+        extra = {}
+        for name, tag in (("4k_cli", "4k"), ("cif", "cif")):
+            f2, p2, w2 = unit(name, key)
+            extra.update({f"ms_{tag}": cuda_ms(f2, 30),
+                          f"plain_ms_{tag}": cuda_ms(p2, 3),
+                          f"device_ms_{tag}": device_ms(f2, 30),
+                          f"bound_ms_{tag}": bound(*w2)[0]})
+        shape = ("one 1080p P frame, 3 planes" if key == "residual_in"
+                 else "1080p luma I plane" if key == "b4t_fwd"
+                 else "1080p luma P plane" + (
+                     ", the recon into the frame image with its "
+                     "prediction" if key == "inv_sbt" else ""))
+        rows.append(row(key, src, rep, worst.get(key, 0), cuda_ms(fn, 50),
+                        cuda_ms(plain, 5), *bound(*work), shape=shape,
+                        device_ms=device_ms(fn, 50), **extra,
+                        launches_per_call=(sbt.inv_plan(1920, 1080)[2]
+                                           if key == "inv_sbt" else 1),
+                        cases=len(cases)))
+    return rows, cases
+
+
 def phase_kernels(dev, bound, clips):
     """Each kernel vs its plain version at the main path's 1080p and 4K
     shapes, on the arguments the main path itself passes to the kernel."""
@@ -683,6 +975,10 @@ def phase_kernels(dev, bound, clips):
                     device_ms_i=dev_ms_i, bound_ms_i=bound(*work_i)[0],
                     ms_4k=ms4, plain_ms_4k=plain_ms4, device_ms_4k=dev_ms4,
                     bound_ms_4k=bound(*work4)[0]))
+    torch.cuda.empty_cache()
+    recon, cases = recon_rows(dev, bound, clips)
+    rows += recon
+    emit({"phase": "kernels", "recon_cases": cases})
     torch.cuda.empty_cache()
     for r in rows:
         emit({"phase": "kernels", **r})
@@ -795,6 +1091,15 @@ def tiled_haar(cw: int, ch: int, D: int, first: int) -> int:
     return D * call(first, m) + call(m + 1, lv)
 
 
+def tiled_whole(cw: int, ch: int, D: int) -> bool:
+    """Whether a (cw, ch) plane's transforms in D column tiles run as the
+    untiled functions (no level splits into whole column pairs a tile:
+    parallel/tile.py `_tiled_levels` 0), and so on the B4T and inverse
+    kernels; the tiled levels run eager."""
+    from dsv1_tpu_torch.parallel import tile
+    return D == 1 or tile._tiled_levels(cw, ch, D) == 0
+
+
 def predict_launches(stats, w: int, h: int, tiles: int = 1) -> dict:
     """Each kernel's launches on a path of one geometry, from what the
     path did (utils/stats.py STATS) and each wrapper's launches per call:
@@ -811,10 +1116,18 @@ def predict_launches(stats, w: int, h: int, tiles: int = 1) -> dict:
     per coarse level, then the candidates) at the auto pyramid depth,
     and per call at effort 1..3 `hme_refine` levels + 2 times (level 0
     too; its level-0 launch also counts as `hme_refine_level0`) and
-    `hme_wide` once."""
+    `hme_wide` once. The recon chain: per call of the core
+    `residual_in` once (the three planes), `hzcc_quant` once a plane,
+    `b4t_fwd` once a plane of an intra call, and where the core
+    reconstructs, `inv_sbt` `sbt.inv_plan`'s launches a plane; per
+    decoder reconstruction (`decode_calls`) `hzcc_dequant` once and
+    `inv_sbt` `inv_plan`'s launches a plane. In column tiles the B4T and
+    the inverse run on their kernels only for planes whose transforms
+    are not split (`tiled_whole`)."""
     from dsv1_tpu_torch.models.encoder import (auto_pyramid_levels,
                                                block_geometry, coef_geometry)
     from dsv1_tpu_torch.constants import SUBSAMP_420
+    from dsv1_tpu_torch.ops import sbt
     _bw, _bh, nbh, nbv = block_geometry(w, h)
     levels = auto_pyramid_levels(w, h, nbh, nbv)
     dims = coef_geometry(SUBSAMP_420, w, h, nbh, nbv)[1]
@@ -822,8 +1135,18 @@ def predict_launches(stats, w: int, h: int, tiles: int = 1) -> dict:
     def haar(first):
         return sum(tiled_haar(cw, ch, tiles, first) for cw, ch in dims)
 
+    whole = [tiled_whole(cw, ch, tiles) for cw, ch in dims]
+    inv = [sbt.inv_plan(cw, ch)[2] for cw, ch in dims]
+    core = stats.get("core_calls_i", 0) + stats.get("core_calls_p", 0)
+    dec = stats.get("decode_calls", 0)
     return {"mc": stats.get("core_calls_p", 0)
             + stats.get("decode_p_calls", 0),
+            "residual_in": core,
+            "b4t_fwd": stats.get("core_calls_i", 0) * sum(whole),
+            "hzcc_quant": 3 * core,
+            "hzcc_dequant": 3 * dec,
+            "inv_sbt": stats.get("core_calls_recon", 0)
+            * sum(n for n, k in zip(inv, whole) if k) + dec * sum(inv),
             "haar_fwd": stats.get("core_calls_i", 0) * haar(2)
             + stats.get("core_calls_p", 0) * haar(1),
             "hme_base": stats.get("hme_calls", 0),
@@ -898,18 +1221,24 @@ def phase_slice(dev, smi, golden, clips):
         check_predicted(name, got, STATS, gold["width"], gold["height"])
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-        results.append({"phase": "slice", "clip": name,
-                        "size": f"{gold['width']}x{gold['height']}",
-                        "frames": n, "stream_bytes": len(stream),
-                        "stream_sha256_ok": True, "decode_sha256_ok": True,
-                        "encode_fps": n / t_enc, "decode_fps": n / t_dec,
-                        "launches": got, "launches_as_predicted": True,
-                        "overflow_redos": STATS["overflow_redos"],
-                        "card": smi})
+        res = {"phase": "slice", "clip": name,
+               "size": f"{gold['width']}x{gold['height']}",
+               "frames": n, "stream_bytes": len(stream),
+               "stream_sha256_ok": True, "decode_sha256_ok": True,
+               "encode_fps": n / t_enc, "decode_fps": n / t_dec,
+               "launches": got, "launches_as_predicted": True,
+               "overflow_redos": STATS["overflow_redos"], "card": smi}
+        if name == "1080p":
+            # kernels per frame and the busy share (outside the counts)
+            res.update(metrics_encode=run_metrics(lambda: (
+                dt.encode_stream_gops(frames, meta, cfg, device=dev)), n),
+                metrics_decode=run_metrics(lambda: (
+                    dt.decode_stream_gops(stream, device=dev)), n))
+        results.append(res)
     for r in results:
         emit(r)
     emit({"phase": "slice", "launches": launches})
-    check_launches("slice", launches)
+    check_launches("slice", launches, BASE_PATH + DEC_RECON)
     return launches
 
 
@@ -966,7 +1295,7 @@ def phase_cli(dev, smi, golden, clips):
             if not (ok_s and ok_d):
                 raise AssertionError(f"{name}: CLI stream or decode "
                                      "differs from golden")
-            check_launches(name, per_path[name])
+            check_launches(name, per_path[name], BASE_PATH + DEC_RECON)
             check_predicted(name, per_path[name], STATS, gold["width"],
                             gold["height"])
             if name == GOPABR_CLIP:
@@ -1072,8 +1401,9 @@ def phase_sequential(dev, smi, golden, clips):
         inp, dsv, out = (Path(td) / f for f in ("in.yuv", "s.dsv", "o.yuv"))
         for name, enc_kernels, enc_absent in (
                 (SEQ_CLIP, BASE_PATH, ("hme_wide",)),
-                (GOP0_CLIP, ("haar_fwd",), ("mc", "hme_refine",
-                                            "hme_base", "hme_wide"))):
+                (GOP0_CLIP, ("haar_fwd", "residual_in", "b4t_fwd",
+                              "hzcc_quant"),
+                 ("mc", "hme_refine", "hme_base", "hme_wide", "inv_sbt"))):
             gold = golden[name]
             yuv, _frames = clips[name]
             if sha(yuv) != gold["clip_sha256"]:
@@ -1092,18 +1422,19 @@ def phase_sequential(dev, smi, golden, clips):
                    "launches_as_predicted": True,
                    "overflow_redos": redos[f"{name} encode"]}
             t_dec, _, _ = run(f"{name} decode", lambda: cli_ok(
-                cli_decode_args(dsv, out)))
+                cli_decode_args(dsv, out)), DEC_RECON)
             res.update(decode_sha256_ok=sha(out.read_bytes())
                        == gold["decode_sha256"], decode_fps=n / t_dec)
             for key, extra in CLIPS[name][5].items():
                 tag = key.replace("_sha256", "")
                 t_x, l_x, _ = run(f"{name} {tag}", lambda: cli_ok(
-                    cli_decode_args(dsv, out, extra)), ("mc",))
+                    cli_decode_args(dsv, out, extra)), DECODE_PATH)
                 res.update({f"{key}_ok": sha(out.read_bytes()) == gold[key],
                             f"{tag}_fps": n / t_x, f"{tag}_launches": l_x})
             if name == SEQ_CLIP:
                 t_api, l_api, dec = run(f"{name} Decoder", lambda: list(
-                    dt.Decoder(device=dev).decode_stream(stream)), ("mc",))
+                    dt.Decoder(device=dev).decode_stream(stream)),
+                    DECODE_PATH)
                 res.update(api_decode_sha256_ok=sha(decoded_bytes(dec))
                            == gold["decode_sha256"],
                            api_decode_fps=n / t_api, api_decode_launches=l_api)
@@ -1395,7 +1726,7 @@ def phase_effort(dev, bound, smi, golden, clips):
                     name, inp, dsv)), w, h, WIDE_PATH, ("hme_base",))
             stream = dsv.read_bytes()
             t_dec, l_dec, _, _ = run(f"{name} decode", lambda: cli_ok(
-                cli_decode_args(dsv, out)), w, h, ("mc",))
+                cli_decode_args(dsv, out)), w, h, DECODE_PATH)
             res = {"phase": "effort", "clip": name, "size": f"{w}x{h}",
                    "frames": n, "argv": gold["argv"],
                    "stream_bytes": len(stream),
@@ -1410,7 +1741,7 @@ def phase_effort(dev, bound, smi, golden, clips):
             if name == EFFORT_SEQ_CLIP:
                 t_api, l_api, _, dec = run(f"{name} Decoder", lambda: list(
                     dt.Decoder(device=dev).decode_stream(stream)), w, h,
-                    ("mc",))
+                    DECODE_PATH)
                 res.update(api_decode_sha256_ok=sha(decoded_bytes(dec))
                            == gold["decode_sha256"],
                            api_decode_fps=n / t_api,
@@ -1532,10 +1863,10 @@ def check_haar_batch(dev, C, hs, ws, is_p, seed):
             "work": (C * nbytes, C * ops)}
 
 
-def encode_metrics(fn, n: int) -> dict:
-    """fn() encodes n frames: after a warm-up, frames/s of one run and,
-    from one more run under torch.profiler, the device kernels and
-    device-to-host copies per encoded frame, the device busy share (the
+def run_metrics(fn, n: int) -> dict:
+    """fn() encodes or decodes n frames: after a warm-up, frames/s of one
+    run and, from one more run under torch.profiler, the device kernels
+    and device-to-host copies per frame, the device busy share (the
     kernels' and copies' device time over the run's wall) and the host
     seconds of the encoder's spans, as tools/torch_profile.py reads
     them."""
@@ -1571,7 +1902,7 @@ def encode_metrics(fn, n: int) -> dict:
             reads += e.count
     if kernels == 0:
         raise AssertionError("the profiler saw no device kernel")
-    return {"encode_fps": n / wall, "wall_s": wall,
+    return {"fps": n / wall, "wall_s": wall,
             "kernels_per_frame": kernels / n,
             "host_reads_per_frame": reads / n,
             "device_busy_share": busy_us * 1e-6 / pwall,
@@ -1693,7 +2024,7 @@ def phase_batches(dev, bound, smi, golden, clips):
 
         t_enc, l_enc, st, stream = run(f"{name} encode", encode, w, h)
         t_dec, l_dec, _, dec = run(f"{name} decode", lambda: (
-            dt.decode_stream_gops(stream, device=dev)[1]), w, h, ("mc",))
+            dt.decode_stream_gops(stream, device=dev)[1]), w, h, DECODE_PATH)
         res = {"phase": "batches", "clip": name, "size": f"{w}x{h}",
                "frames": n, "encode": API[name],
                "stream_bytes": len(stream),
@@ -1718,8 +2049,10 @@ def phase_batches(dev, bound, smi, golden, clips):
             def encode_c1():
                 streams_c1.append(encode(gops_per_device=1))
 
-            res.update(metrics_c4=encode_metrics(encode, n),
-                       metrics_c1=encode_metrics(encode_c1, n))
+            res.update(metrics_c4=run_metrics(encode, n),
+                       metrics_c1=run_metrics(encode_c1, n),
+                       metrics_decode=run_metrics(lambda: (
+                           dt.decode_stream_gops(stream, device=dev)), n))
             res["c1_stream_equal_ok"] = all(x == stream for x in streams_c1)
         elif name == CUT_CLIP:
             res["stab_carried_ok"] = st.get("stab_carried", 0) > 0
@@ -1989,9 +2322,9 @@ def phase_mesh(dev, smi, golden, clips, cards=None):
     w, h, n = gold["width"], gold["height"], gold["frames"]
     stream = dt.encode_stream_gops(frames, meta, cfg, dev, **kw)
     run("cif_batch decode (warm-up)", lambda: dt.decode_stream_gops(
-        stream, device=dev), w, h, ("mc",))
+        stream, device=dev), w, h, DECODE_PATH)
     t_dec, l_dec, st, (_m, dec) = run("cif_batch decode", lambda: (
-        dt.decode_stream_gops(stream, device=dev)), w, h, ("mc",))
+        dt.decode_stream_gops(stream, device=dev)), w, h, DECODE_PATH)
     emit({"phase": "mesh", "clip": BATCH_CLIP, "path": "batched decode",
           **ok(BATCH_CLIP, gold, dec=dec), "decode_fps": n / t_dec,
           "mc_launches": l_dec.get("mc", 0),
@@ -2021,7 +2354,7 @@ def phase_mesh(dev, smi, golden, clips, cards=None):
         if name == BATCH_CLIP:
             t_dec, l_dec, _st, (_m, dec) = run(
                 f"{name} mesh decode", lambda: dt.decode_stream_gops(
-                    stream, mesh=gm), w, h, ("mc",))
+                    stream, mesh=gm), w, h, DECODE_PATH)
             res.update(ok(name, gold, dec=dec), decode_fps=n / t_dec,
                        decode_launches=l_dec)
         emit({**res, "card": smi, "phase_s": since()})
@@ -2039,7 +2372,7 @@ def phase_mesh(dev, smi, golden, clips, cards=None):
         mesh = dt.gop_tile_mesh(*shape, entries(shape[0] * shape[1]))
         t_enc, l_enc, st, stream = run(f"{name} gop x tile encode", lambda: (
             dt.encode_stream_gops(frames, meta, cfg, mesh=mesh, **kw)), w, h,
-            tiles=shape[1])
+            TILE_PATH, tiles=shape[1])
         emit({"phase": "mesh", "clip": name,
               "path": f"gop_tile_mesh{shape}",
               "devices": [str(d) for d in mesh.devices.reshape(-1)],

@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 # launches per kernel: each wrapper adds one where it launches its kernel
-# (`refine_level` at level 0 also to `hme_refine_level0`)
+# (`refine_level` at level 0 also to `hme_refine_level0`; `inv_sbt` one
+# per launch of its pyramid, ops/sbt.py `inv_plan`)
 LAUNCHES = collections.Counter()
 
 _lib = None
@@ -99,11 +100,52 @@ def lib():
             + [P] * 10
         L.dsv1_haar_pyramid.argtypes = [P, I64, I64, I, I, I, I, P, I64, I64,
                                         I, P, P]
+        L.dsv1_hzcc_quant.argtypes = [P, I64, I, I, I, P, I, I, I, P, I64,
+                                      I, P, I64, I, I, I, P, I64, P, I64, P]
+        L.dsv1_hzcc_dequant.argtypes = [P, I64, I, I, I, P, I, I, I, P, I64,
+                                        I, P, I64, I, I, I, P, I64, I, P,
+                                        I64, P]
+        L.dsv1_inv_sbt.argtypes = [P, I64, I64, I, I, I, I, I, P, I64, I, I,
+                                   I, P, P, I, P, I64, I64, I, I, I, P, I64,
+                                   I64, P]
+        L.dsv1_b4t_fwd.argtypes = [P, I64, I, I, I, P, I64, P, I64, P]
+        L.dsv1_residual_in.argtypes = [P, I64, P, I64, P, P, I, I, P]
         for fn in (L.dsv1_mc_frame, L.dsv1_hme_refine, L.dsv1_hme_coarse,
-                   L.dsv1_hme_base, L.dsv1_hme_wide, L.dsv1_haar_pyramid):
+                   L.dsv1_hme_base, L.dsv1_hme_wide, L.dsv1_haar_pyramid,
+                   L.dsv1_hzcc_quant, L.dsv1_hzcc_dequant, L.dsv1_inv_sbt,
+                   L.dsv1_b4t_fwd, L.dsv1_residual_in):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib
+
+
+def packed_planes(t, name: str):
+    """(C, batch stride) of an int32 plane (H, W) or batch (C, H, W) with
+    packed rows, as the recon kernels take them; raises on any other
+    tensor."""
+    import torch
+    if t.dim() not in (2, 3) or t.dtype != torch.int32 \
+            or t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
+        raise ValueError(f"{name} must be an int32 (H, W) or (C, H, W) "
+                         "tensor with packed rows")
+    return (t.shape[0], t.stride(0)) if t.dim() == 3 else (1, 0)
+
+
+def per_plane(v, C: int, dev, name: str, n: int = 1):
+    """(pointer, batch stride, scalar) of a per-plane kernel argument: a
+    python int (a null pointer and the int), or an int32 or u8 tensor on
+    dev of C rows of n values, contiguous within a row; raises on any
+    other."""
+    import torch
+    if not isinstance(v, torch.Tensor):
+        return None, 0, int(v)
+    rows = v.dim() == (1 if n == 1 else 2)
+    if v.device != dev or v.numel() != C * n \
+            or v.dtype not in (torch.int32, torch.uint8) \
+            or (n > 1 and v.stride(-1) != 1) or not (rows or C == 1):
+        raise ValueError(f"{name} must be an int32 or u8 tensor of {n} "
+                         f"value(s) for each of the {C} planes on {dev}")
+    return v.data_ptr(), (v.stride(0) if rows else 0), 0
 
 
 def check(err: int, name: str):

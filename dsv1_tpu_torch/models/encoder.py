@@ -158,15 +158,21 @@ def make_encode_core_traced(subsamp: int, w: int, h: int, blk_w: int,
     or C frames of the same type: images (C, n), stable_blocks and fields
     (C, ...), and each output gains the leading C. is_p is a python bool
     (the frame type is known on the host); the prediction is built only
-    for P frames. Without `want_recon` the inverse transform and the
-    residual add are skipped and the recon image is None (gop 0: no
-    frame is a reference). tile_hook, if given (parallel/tile.py
+    for P frames. Per frame: the prologue (`bmc.residual_in`, the three
+    planes' centred coefficients), then per plane the forward transform,
+    the quantization with write-back (`hzcc.encode_plane_core`) and the
+    recon (`sbt.inv_sbt_recon`: the inverse transform, the residual add
+    and the plane written into the recon image); on the card each is one
+    launch of a kernel for the whole batch (the inverse a few). Without
+    `want_recon` the recon is skipped and the recon image is None (gop
+    0: no frame is a reference). tile_hook, if given (parallel/tile.py
     `tile_hook`, the JAX core's `tile_hook`), runs the forward and
     inverse subband transforms in column tiles over a gop x tile mesh
-    row's devices; everything else stays on the frame's device."""
+    row's devices, and the recon epilogue after them
+    (`sbt.recon_epilogue_plain`); everything else stays on the frame's
+    device."""
     layout, coef_dims, tables = coef_geometry(subsamp, w, h, nbh, nbv)
     fwd_sbt = sbt.fwd_sbt if tile_hook is None else tile_hook.fwd
-    inv_sbt = sbt.inv_sbt if tile_hook is None else tile_hook.inv
 
     def f(input_img, ref_recon_img, is_p: bool, quant: int, stable_blocks,
           modes, mvx, mvy, submask):
@@ -177,44 +183,35 @@ def make_encode_core_traced(subsamp: int, w: int, h: int, blk_w: int,
                              else ref_recon_img[None])
             stable_blocks = stable_blocks.reshape(1, -1)
         C = input_img.shape[0]
-        qvals, dcs, recon_planes = [], [], []
+        qvals, dcs = [], []
+        preds = None
         if is_p:
             preds = bmc.compensate_frame(
                 ref_recon_img, layout, blk_w, blk_h, nbh, nbv,
                 *(x.reshape(C, -1) for x in (modes, mvx, mvy, submask)))
+        planes = bmc.residual_in(input_img, layout, coef_dims, preds)
+        recon = (torch.zeros((C, layout.total + 2 * layout.margin),
+                             dtype=torch.uint8, device=input_img.device)
+                 if want_recon else None)
         for c in range(3):
-            p = layout.planes[c]
-            cw, ch = coef_dims[c]
-            src_ext = fr.plane_view_ext(input_img, layout, c, cw - p.w)
-            src_core = src_ext[:, :p.h, :p.w]
-            if is_p:
-                pred = preds[c]
-                core = bmc.sub_residual(src_core, pred)
-            else:
-                core = src_core
-            coefs = torch.zeros((C, ch, cw), dtype=torch.int32,
-                                device=input_img.device)
-            coefs[:, :p.h, :p.w] = core.to(torch.int32) - 128
-            if cw > p.w:
-                # p2sbc reads the replicated border column (original edge)
-                coefs[:, :p.h, p.w:cw] = \
-                    src_ext[:, :p.h, p.w:cw].to(torch.int32) - 128
-            coefs = fwd_sbt(coefs, is_p)
+            coefs = fwd_sbt(planes[c], is_p)
             qv, wb = hzcc.encode_plane_core(coefs, quant, is_p, c,
                                             stable_blocks, tables[c])
             qvals.append(qv)
             dcs.append(coefs[:, 0, 0])
             if not want_recon:
                 continue
-            rp = sbt.coefs_to_plane(inv_sbt(
-                wb, quant, is_p, is_luma=(c == 0)))[:, :p.h, :p.w]
-            if is_p:
-                rp = bmc.add_residual(pred, rp)
-            recon_planes.append(rp)
-        recon = (fr.image_from_planes(layout, recon_planes) if want_recon
-                 else None)
+            pred = preds[c] if is_p else None
+            if tile_hook is None:
+                sbt.inv_sbt_recon(wb, quant, is_p, c == 0, recon, layout, c,
+                                  pred)
+            else:
+                sbt.recon_epilogue_plain(
+                    tile_hook.inv(wb, quant, is_p, is_luma=(c == 0)), recon,
+                    layout, c, pred)
         STATS["core_p" if is_p else "core_i"] += C
         STATS["core_calls_p" if is_p else "core_calls_i"] += 1
+        STATS["core_calls_recon"] += int(want_recon)
         if batch:
             return qvals, dcs, recon
         return ([q[0] for q in qvals], [d[0] for d in dcs],

@@ -10,6 +10,13 @@ rasters, so each band is a slice of the coefficient grid, processed in
 traversal order: when odd ceil dims make bands alias, later bands read
 the values earlier bands wrote back, as in the reference.
 
+`encode_plane_core` and `dequant_plane_grid` launch the kernels of
+csrc/hzcc.cu (one launch for a batch of planes, one thread per grid
+position walking the segments in traversal order; they replace the XLA
+code of the JAX package's twins, dsv1_tpu/ops/hzcc.py:191, :236) on
+CUDA tensors, and run their plain versions (`*_plain`, band by band)
+on CPU tensors.
+
 `compact_dense_i` and `compact_sparse_p` shrink a frame's quantized
 planes on the device before the host reads them (intra planes as dense
 int8 plus the LL's large values, P planes as capped (run, value) lists),
@@ -19,6 +26,7 @@ take any leading batch dimensions (the planes of one frame index of
 every GOP of a chunk), each element on its own.
 """
 
+import ctypes
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -129,15 +137,13 @@ def _qparam(qp0, qp1, lvl: int, st):
     return tmq4pos(qp0 if lvl == 0 else qp1, st)
 
 
-def encode_plane_core(coefs, q: int, is_p: bool, plane_idx: int,
-                      stable_blocks, tables: TraversalTables):
-    """Quantize + in-loop write-back (hzcc_enc, hzcc.c:138-293).
-
-    coefs: (..., H, W) int32 from fwd_sbt, stable_blocks (..., nblk).
-    Returns (qvals (..., N) quantized values in traversal order, recon
-    coefs with the dequantized write-back and the raw DC restored)."""
+def encode_plane_core_plain(coefs, q, is_p: bool, plane_idx: int,
+                            stable_blocks, tables: TraversalTables):
+    """The plain version of encode_plane_core, band by band."""
     work = coefs.to(torch.int32).clone()
     lead = work.shape[:-2]
+    if isinstance(q, torch.Tensor):
+        q = q.to(torch.int32).reshape(lead + (1, 1))
     dc = work[..., 0, 0].clone()
     work[..., 0, 0] = 0  # hzcc.c:171 src[0] = 0
     qp_ll, qp0, qp1, qp2, qp2h = frame_quants(q, is_p, plane_idx)
@@ -165,13 +171,9 @@ def encode_plane_core(coefs, q: int, is_p: bool, plane_idx: int,
     return torch.cat(qparts, dim=-1), work
 
 
-def dequant_plane_grid(qgrid, dc, q, is_p: bool, plane_idx: int,
-                       stable_blocks, tables: TraversalTables):
-    """Dequantize a grid of quantized values (decode side of hzcc_dec,
-    hzcc.c:296-435); qgrid is (..., H, W) in grid order, band aliases
-    already resolved last-wins by the parser, stable_blocks (..., nblk).
-    dc: the raw DC; dc and q python ints, or int32 tensors of the leading
-    shape (a DC and a quant per plane of a batch)."""
+def dequant_plane_grid_plain(qgrid, dc, q, is_p: bool, plane_idx: int,
+                             stable_blocks, tables: TraversalTables):
+    """The plain version of dequant_plane_grid, band by band."""
     qgrid = qgrid.to(torch.int32)
     lead = qgrid.shape[:-2]
     if isinstance(q, torch.Tensor):
@@ -192,6 +194,82 @@ def dequant_plane_grid(qgrid, dc, q, is_p: bool, plane_idx: int,
                 dq = dequant_hi(vals, torch.where(st != 0, qp2h, qp2))
         out[..., oy:oy + sh, ox:ox + sw] = torch.where(vals == 0, 0, dq)
     out[..., 0, 0] = dc
+    return out
+
+
+@lru_cache(maxsize=64)
+def _seg_array(tables: TraversalTables):
+    """The kernels' segment table: (lvl, oy, ox, sh, sw) per segment."""
+    vals = [v for (lvl, oy, ox, sh, sw, _bj, _bi) in tables.segs
+            for v in (lvl, oy, ox, sh, sw)]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _hzcc_args(q, stable_blocks, C: int, dev, tables: TraversalTables):
+    """The quant and stable-block arguments of csrc/hzcc.cu."""
+    from ..kernels.build import per_plane
+    if isinstance(q, torch.Tensor) and q.dtype != torch.int32:
+        raise ValueError("q must be a python int or an int32 tensor")
+    qp, qs, qv = per_plane(q, C, dev, "q")
+    sp, ss, _ = per_plane(stable_blocks, C, dev, "stable_blocks",
+                          tables.nbh * tables.nbv)
+    seg = _seg_array(tables)
+    return (seg, len(tables.segs), tables.nbh, tables.nbv, qp, qs, qv, sp,
+            ss, int(stable_blocks.dtype == torch.uint8))
+
+
+def encode_plane_core(coefs, q, is_p: bool, plane_idx: int, stable_blocks,
+                      tables: TraversalTables):
+    """Quantize + in-loop write-back (hzcc_enc, hzcc.c:138-293).
+
+    coefs: (..., H, W) int32 from fwd_sbt, stable_blocks (..., nblk); q a
+    python int, or an int32 tensor of the leading shape (a quant per
+    plane of a batch). Returns (qvals (..., N) quantized values in
+    traversal order, recon coefs with the dequantized write-back and the
+    raw DC restored). CUDA tensors, a plane (H, W) or a batch (C, H, W):
+    one launch of csrc/hzcc.cu; CPU tensors: the plain version."""
+    if not coefs.is_cuda:
+        return encode_plane_core_plain(coefs, q, is_p, plane_idx,
+                                       stable_blocks, tables)
+    from ..kernels.build import LAUNCHES, launch, packed_planes
+    C, cb = packed_planes(coefs, "coefs")
+    H, W = coefs.shape[-2:]
+    args = _hzcc_args(q, stable_blocks, C, coefs.device, tables)
+    lead = coefs.shape[:-2]
+    qvals = torch.empty(lead + (tables.n,), dtype=torch.int32,
+                        device=coefs.device)
+    work = torch.empty(lead + (H, W), dtype=torch.int32, device=coefs.device)
+    launch("dsv1_hzcc_quant", coefs, coefs.data_ptr(), cb, H, W, C, *args,
+           int(bool(is_p)), plane_idx, qvals.data_ptr(), tables.n,
+           work.data_ptr(), H * W)
+    LAUNCHES["hzcc_quant"] += 1
+    return qvals, work
+
+
+def dequant_plane_grid(qgrid, dc, q, is_p: bool, plane_idx: int,
+                       stable_blocks, tables: TraversalTables):
+    """Dequantize a grid of quantized values (decode side of hzcc_dec,
+    hzcc.c:296-435); qgrid is (..., H, W) in grid order, band aliases
+    already resolved last-wins by the parser, stable_blocks (..., nblk).
+    dc: the raw DC; dc and q python ints, or int32 tensors of the leading
+    shape (a DC and a quant per plane of a batch). CUDA tensors, a plane
+    (H, W) or a batch (C, H, W): one launch of csrc/hzcc.cu; CPU
+    tensors: the plain version."""
+    if not qgrid.is_cuda:
+        return dequant_plane_grid_plain(qgrid, dc, q, is_p, plane_idx,
+                                        stable_blocks, tables)
+    from ..kernels.build import LAUNCHES, launch, packed_planes, per_plane
+    C, gb = packed_planes(qgrid, "qgrid")
+    H, W = qgrid.shape[-2:]
+    args = _hzcc_args(q, stable_blocks, C, qgrid.device, tables)
+    if isinstance(dc, torch.Tensor) and dc.dtype != torch.int32:
+        raise ValueError("dc must be a python int or an int32 tensor")
+    dp, ds, dv = per_plane(dc, C, qgrid.device, "dc")
+    out = torch.empty(qgrid.shape[:-2] + (H, W), dtype=torch.int32,
+                      device=qgrid.device)
+    launch("dsv1_hzcc_dequant", qgrid, qgrid.data_ptr(), gb, H, W, C, *args,
+           int(bool(is_p)), plane_idx, dp, ds, dv, out.data_ptr(), H * W)
+    LAUNCHES["hzcc_dequant"] += 1
     return out
 
 

@@ -12,7 +12,14 @@ into the top-left corner. `haar_fwd_pyramid` runs all the Haar levels of
 a plane, or of a batch of planes: on CUDA tensors in one C call of the
 kernels csrc/sbt.cu (they replace the Pallas `kern` of
 tools/bench_haar.py:169), on CPU tensors by its plain version, a loop of
-`_haar_fwd_region`. Every function takes any leading batch dimensions;
+`_haar_fwd_region`. The intra level 1 (`b4t_fwd`, in `fwd_sbt`) and the
+whole inverse pyramid (`inv_sbt`, and `inv_sbt_recon` with the recon
+epilogue: +128 clamped to u8, the residual add of P planes, the plane
+written into the frame image) launch the kernels of csrc/recon.cu on
+CUDA tensors (they replace the XLA code of the JAX package's
+`_b4t_fwd_2d`, `inv_sbt`, `coefs_to_plane` and `add_residual`) and run
+their plain versions on CPU tensors. Every function takes any leading
+batch dimensions;
 the last two are the plane's rows and columns. The inverse reads
 each level's band pieces from the original array. Odd dimensions are
 edge-replicated (forward) and zero-padded (inverse). `is_p` is a python bool here: the caller knows
@@ -25,12 +32,17 @@ import torch.nn.functional as F
 
 from ..constants import MAXLVL, MINQUANT, QP_I, QP_P, round_shift
 
+from . import frame as fr
+from .bmc import add_residual
 from .cint import cdiv, lb2, round2, round4, round8, trunc_div
 
 
 # the Haar kernel's tile side and the levels a tile runs (64 -> 1): they
 # size its scratch and count its launches, so they match csrc/sbt.cu
 HAAR_TILE, HAAR_TILE_LEVELS = 64, 6
+# the inverse's small stage (csrc/recon.cu) runs, in one block per plane,
+# the top levels whose output has at most this many values (`inv_plan`)
+INV_SMALL_MAX = 8192
 
 
 def nlevels(w: int, h: int) -> int:
@@ -197,6 +209,35 @@ def haar_fwd_pyramid(cur, out, first: int, lvls: int):
     LAUNCHES["haar_fwd"] += 1 + coarse
 
 
+def b4t_fwd_plain(a):
+    """The plain version of b4t_fwd."""
+    out = _b4t_fwd_2d(a)
+    H, W = a.shape[-2:]
+    return out, out[..., :H // 2, :W // 2].clone()
+
+
+def b4t_fwd(a):
+    """The intra level 1 of int32 planes a (..., H, W), H and W even: the
+    B4T's four bands in place (H, W), and a contiguous copy of its LL
+    quadrant (H / 2, W / 2), which the Haar levels read. CUDA tensors, a
+    plane or a batch (C, H, W): one launch of csrc/recon.cu; CPU tensors:
+    the plain version."""
+    H, W = a.shape[-2:]
+    _check_even(H)
+    _check_even(W)
+    if not a.is_cuda:
+        return b4t_fwd_plain(a)
+    from ..kernels.build import LAUNCHES, launch, packed_planes
+    C, sb = packed_planes(a, "b4t_fwd's input")
+    out = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    ll = torch.empty(a.shape[:-2] + (H // 2, W // 2), dtype=torch.int32,
+                     device=a.device)
+    launch("dsv1_b4t_fwd", a, a.data_ptr(), sb, H, W, C, out.data_ptr(),
+           H * W, ll.data_ptr(), H * W // 4)
+    LAUNCHES["b4t_fwd"] += 1
+    return out, ll
+
+
 def fwd_sbt(coefs, is_p: bool):
     """dsv_fwd_sbt (sbt.c:630-651) on centered int32 coefs (..., H, W)."""
     H, W = coefs.shape[-2:]
@@ -206,8 +247,7 @@ def fwd_sbt(coefs, is_p: bool):
     if not is_p and lvls >= 1:
         # B4T level 1 gives all four bands in place; the Haar levels read
         # a copy of its LL, since they overwrite that corner
-        out = _b4t_fwd_2d(cur)
-        cur = out[..., :(H + 1) // 2, :(W + 1) // 2].clone()
+        out, cur = b4t_fwd(cur)
         first = 2
     else:
         out = torch.empty_like(cur)
@@ -278,10 +318,8 @@ def _haar_inv_region(cur, lh_col, hl_row, LH, HL, HH, ws: int, hs: int,
     return _interleave2x2(a00, a01, a10, a11)[..., :hs, :ws]
 
 
-def inv_sbt(coefs, q, is_p: bool, is_luma: bool):
-    """dsv_inv_sbt (sbt.c:653-714) on int32 coefs (..., H, W). q: the
-    quant, a python int, or an int32 tensor of the leading shape (a quant
-    per plane of a batch)."""
+def inv_sbt_plain(coefs, q, is_p: bool, is_luma: bool):
+    """The plain version of inv_sbt: `inv_levels` from the top level."""
     H, W = coefs.shape[-2:]
     lvls = nlevels(W, H)
     a = coefs.to(torch.int32)
@@ -322,3 +360,112 @@ def inv_levels(a, cur, W: int, H: int, q, is_p: bool, is_luma: bool,
 def coefs_to_plane(coefs):
     """sbc2int (C.3.3, sbt.c:594-614): +128 and clamp to u8."""
     return (coefs + 128).clamp(0, 255).to(torch.uint8)
+
+
+def inv_plan(W: int, H: int):
+    """(top, small_lo, launches) of the inverse kernel on a (W, H) plane:
+    the small stage runs levels top..small_lo (small_lo >= 2) in one
+    block per plane, while each level's output has at most INV_SMALL_MAX
+    values; then one launch per level small_lo - 1..1. A plane of one
+    level runs level 1 alone (small_lo past top)."""
+    top = nlevels(W, H)
+    if top < 2:
+        return top, top + 1, 1
+    lo = top
+    while lo > 2 and round_shift(H, lo - 2) * round_shift(W, lo - 2) \
+            <= INV_SMALL_MAX:
+        lo -= 1
+    return top, lo, lo
+
+
+def _inv_launch(coefs, q, is_p: bool, is_luma: bool, mode: int, out,
+                ostride: int, obatch: int, h: int, w: int, ext: int,
+                pred=None):
+    """One C call of csrc/recon.cu's inverse pyramid (see inv_sbt and
+    inv_sbt_recon)."""
+    from ..kernels.build import LAUNCHES, launch, packed_planes, per_plane
+    H, W = coefs.shape[-2:]
+    C, ab = packed_planes(coefs, "coefs")
+    if not is_p:
+        _check_even(H)
+        _check_even(W)
+    top, lo, n = inv_plan(W, H)
+    if top < 1:
+        raise ValueError("the inverse kernel needs a plane of a level or "
+                         "more")
+    if isinstance(q, torch.Tensor) and q.dtype != torch.int32:
+        raise ValueError("q must be a python int or an int32 tensor")
+    qp, qs, qv = per_plane(q, C, coefs.device, "q")
+    pp, ps, pb = None, 0, 0
+    if pred is not None:
+        if pred.dtype != torch.uint8 or pred.stride(-1) != 1 \
+                or pred.shape[-2:] != (h, w) or pred.device != coefs.device \
+                or pred.numel() != C * h * w:
+            raise ValueError(f"pred must be (C, {h}, {w}) u8 rows on the "
+                             "coefficients' device")
+        pp, ps, pb = (pred.data_ptr(), pred.stride(-2),
+                      pred.stride(0) if pred.dim() == 3 else 0)
+    nbuf = C * round_shift(H, 1) * round_shift(W, 1) if top > 1 else 0
+    s0 = torch.empty(nbuf, dtype=torch.int32, device=coefs.device)
+    s1 = torch.empty(nbuf, dtype=torch.int32, device=coefs.device)
+    launch("dsv1_inv_sbt", coefs, coefs.data_ptr(), W, ab, H, W, C, top, lo,
+           qp, qs, qv, int(bool(is_p)), int(bool(is_luma)), s0.data_ptr(),
+           s1.data_ptr(), mode, out, ostride, obatch, h, w, ext, pp, ps, pb)
+    LAUNCHES["inv_sbt"] += n
+
+
+def inv_sbt(coefs, q, is_p: bool, is_luma: bool):
+    """dsv_inv_sbt (sbt.c:653-714) on int32 coefs (..., H, W). q: the
+    quant, a python int, or an int32 tensor of the leading shape (a quant
+    per plane of a batch). CUDA tensors, a plane or a batch (C, H, W):
+    one C call of csrc/recon.cu (`inv_plan` launches); CPU tensors: the
+    plain version."""
+    if not coefs.is_cuda:
+        return inv_sbt_plain(coefs, q, is_p, is_luma)
+    H, W = coefs.shape[-2:]
+    out = torch.empty(coefs.shape, dtype=torch.int32, device=coefs.device)
+    _inv_launch(coefs, q, is_p, is_luma, 0, out.data_ptr(), W, H * W, H, W,
+                0)
+    return out
+
+
+def recon_epilogue_plain(v, img, layout, c: int, pred=None):
+    """The recon epilogue of an inverse's int32 plane v (..., H, W): +128
+    clamped to u8 (sbc2int), cut to plane c's (h, w), for a P plane the
+    residual add of its prediction pred (..., h, w) u8 (addf: the second
+    clamp), written with its replicated border and zero stride tail into
+    plane c's rows of the frame images img (..., n) u8."""
+    p = layout.planes[c]
+    rp = coefs_to_plane(v)[..., :p.h, :p.w]
+    if pred is not None:
+        rp = add_residual(pred, rp)
+    start = layout.margin + p.offset - p.stride * p.ext - p.ext
+    img[..., start:start + p.stride * (p.h + 2 * p.ext)] = \
+        fr._ext_plane_rows(rp, p)
+
+
+def inv_sbt_recon(coefs, q, is_p: bool, is_luma: bool, img, layout,
+                  c: int, pred=None):
+    """The recon of plane c of a frame or of a batch of frames: inv_sbt of
+    the written-back coefficients (..., H, W), then the recon epilogue
+    (`recon_epilogue_plain`) into the frame images img (..., n) u8, whose
+    margins and stride tails the caller has zeroed; pred: the plane's MC
+    prediction (..., h, w) u8 for P frames. CUDA tensors, a plane or a
+    batch (C, H, W): one C call of csrc/recon.cu whose last launch writes
+    the plane and its border straight into img; CPU tensors: the plain
+    versions."""
+    if not coefs.is_cuda:
+        recon_epilogue_plain(inv_sbt_plain(coefs, q, is_p, is_luma), img,
+                             layout, c, pred)
+        return
+    p = layout.planes[c]
+    C = coefs.shape[0] if coefs.dim() == 3 else 1
+    if img.dtype != torch.uint8 or img.device != coefs.device \
+            or img.stride(-1) != 1 or img.numel() != C * img.shape[-1] \
+            or img.shape[-1] != layout.total + 2 * layout.margin:
+        raise ValueError("img must be the (C, n) u8 frame images of the "
+                         "layout on the coefficients' device")
+    ib = img.stride(0) if img.dim() == 2 else 0
+    base = img.data_ptr() + fr.flat_base(layout, c)
+    _inv_launch(coefs, q, is_p, is_luma, 2 if pred is not None else 1,
+                base, p.stride, ib, p.h, p.w, p.ext, pred)

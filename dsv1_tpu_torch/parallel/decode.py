@@ -87,10 +87,14 @@ class GopDecoder:
         n) their chains' reference images (ignored for I pictures),
         qgrids (G, N) their quantized grids, meta (G, X) their small
         fields. Returns (the new images (G, n), the (y, u, v) planes, each
-        (G, h, w)). P pictures take one MC launch."""
+        (G, h, w), views of them). P pictures take one MC launch; each
+        plane one launch of the dequantization and one C call of the
+        inverse transform, which writes the plane into the new images
+        (ops/sbt.py `inv_sbt_recon`)."""
         G, nb = qgrids.shape[0], self.nblk
         quant = meta[:, self._Q]
         stable = meta[:, 4:4 + nb]
+        STATS["decode_calls"] += 1
         if is_p:
             STATS["decode_p"] += G
             STATS["decode_p_calls"] += 1
@@ -99,21 +103,18 @@ class GopDecoder:
             preds = bmc.compensate_frame(refs, self.layout, self.blk_w,
                                          self.blk_h, self.nbh, self.nbv,
                                          *mv)
-        outs = []
+        img = torch.zeros((G, self.layout.total + 2 * self.layout.margin),
+                          dtype=torch.uint8, device=qgrids.device)
         for c in range(3):
-            p = self.layout.planes[c]
             cw, ch = self.coef_dims[c]
             qgrid = qgrids[:, self.offs[c]:self.offs[c] + self.nper[c]] \
                 .reshape(G, ch, cw)
             coefs = hzcc.dequant_plane_grid(qgrid, meta[:, self._DC + c],
                                             quant, is_p, c, stable,
                                             self.tables[c])
-            rp = sbt.coefs_to_plane(sbt.inv_sbt(
-                coefs, quant, is_p, is_luma=(c == 0)))[:, :p.h, :p.w]
-            if is_p:
-                rp = bmc.add_residual(preds[c], rp)
-            outs.append(rp)
-        return fr.image_from_planes(self.layout, outs), outs
+            sbt.inv_sbt_recon(coefs, quant, is_p, c == 0, img, self.layout,
+                              c, preds[c] if is_p else None)
+        return img, [fr.plane_view(img, self.layout, c) for c in range(3)]
 
     def step(self, ref_img, qflat, pic):
         """One picture: returns (new reference image, (y, u, v) planes)."""

@@ -10,6 +10,8 @@ paths run; callers set it to 0 with `STATS.clear()`. Keys:
   on P frames: a frame, or on the GOP path the frames of one type at
   one frame index of a chunk's GOPs (each call launches each kernel
   once);
+- `core_calls_recon`: those of them that reconstructed their frames
+  (all but gop 0's, whose frames are no reference);
 - `chunks`: chunks of GOPs the GOP path encoded (gop > 0);
 - `stab_carried`: GOPs whose I frame found the stability accumulators
   carried from the GOP before (the refresh counter between 0 and its
@@ -17,6 +19,10 @@ paths run; callers set it to 0 with `STATS.clear()`. Keys:
 - `hme_calls`, `hme_calls_wide`: `hme_batch` calls at effort 0 and at
   effort 1..3 (one per chunk of GOPs of more than one frame on the GOP
   path, one per P frame on the sequential `Encoder`);
+- `decode_calls`: the decoders' reconstructions of pictures of one
+  type together (the GOP decoder's pictures of one type at one frame
+  index of a chunk of chains on one device, or one picture of the
+  sequential `Decoder`): each dequantizes and inverts every plane;
 - `decode_p`, `decode_p_calls`: P pictures predicted by the decoders,
   and the MC calls that predicted them (each a launch of the MC
   kernel: the GOP decoder's P pictures of one frame index of a chunk of

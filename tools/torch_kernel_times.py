@@ -1,7 +1,7 @@
-"""Times the port's Haar, MC and HME kernels' units of work on the GPU.
+"""Times the port's kernels' units of work on the GPU.
 
-    python3 tools/torch_kernel_times.py [--root DIR] [--only haar,mc,hme]
-        [--e2e N] [--out FILE]
+    python3 tools/torch_kernel_times.py [--root DIR]
+        [--only haar,mc,hme,recon] [--e2e N] [--out FILE]
 
 The units of work the encoder hands to the Haar, MC and HME kernels, at
 the main path's shapes, on random coefficients and on golden clips'
@@ -25,11 +25,23 @@ of the first GOP, as chip_smoke.py picks it):
   (`refine_level`) and `refine_wide` at efforts 1, 2 and 3, on the GOP
   and on its first pair alone (B = 1).
 
+- `recon`: the recon chain's frame step on the 1080p and the 3840x2160
+  clip's second frame: the encode core (`make_encode_core_traced`'s
+  function) on it as a P frame (the HME field of the first GOP, the
+  first frame as its reference) and as an I frame, and its units: the
+  prologue (`bmc.residual_in`, where the port has it), the intra B4T
+  level (`sbt.b4t_fwd`, else `sbt._b4t_fwd_2d`), `hzcc.encode_plane_core`
+  and `hzcc.dequant_plane_grid` on the luma plane's coefficients, and the
+  luma recon (`sbt.inv_sbt_recon`, else `inv_sbt`, `coefs_to_plane` and
+  `bmc.add_residual`): on a tree from before the recon kernels, the
+  eager chain they replace.
+
 For each: the CUDA-event mean per call over a loop of calls (the
 wrappers' host work included), the device time per call summed from
 torch.profiler's kernel events, of it the time of the case's own
-hand-written kernels (`haar_`, `mc_` or `hme_` in the name), and the
-kernels launched and host-to-device copies made per call.
+hand-written kernels (`haar_`, `mc_` or `hme_` in the name; for `recon`
+every hand-written kernel's), and the kernels launched and
+host-to-device copies made per call.
 `--e2e N` also times N encodes (`encode_stream_gops`, CRF) and N
 decodes of the 1080p golden clip (or of `--e2e-clip`, an
 encode_stream_gops golden clip with its own arguments, such as
@@ -65,11 +77,16 @@ def event_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps: int, own: str = "dsv1"):
+# the names of the port's hand-written kernels hold one of these
+OWN_KERNELS = ("haar_", "mc_", "hme_", "hzcc_", "inv_", "b4t_",
+               "residual_in")
+
+
+def device_ms(fn, reps: int, own="dsv1"):
     """(device ms per call, kernels per call, host-to-device copies per
-    call, device ms per call of the kernels whose names hold `own`) from
-    torch.profiler's device events over reps calls (memcpy and memset
-    events left out of the first two)."""
+    call, device ms per call of the kernels whose names hold `own`, a
+    string or a tuple of them) from torch.profiler's device events over
+    reps calls (memcpy and memset events left out of the first two)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -90,7 +107,8 @@ def device_ms(fn, reps: int, own: str = "dsv1"):
             continue
         us += e.self_device_time_total
         n += e.count
-        if own in e.key:
+        if any(o in e.key for o in ((own,) if isinstance(own, str)
+                                    else own)):
             own_us += e.self_device_time_total
     return us * 1e-3 / reps, n / reps, h2d / reps, own_us * 1e-3 / reps
 
@@ -98,9 +116,10 @@ def device_ms(fn, reps: int, own: str = "dsv1"):
 def timed(name, fn, reps, own):
     ev = event_ms(fn, reps)
     dev, kern, h2d, own_ms = device_ms(fn, reps, own)
+    tag = f"{own}*" if isinstance(own, str) else "own_kernels"
     return {"name": name, "ms": ev, "device_ms": dev,
             "kernels_per_call": kern, "h2d_copies_per_call": h2d,
-            f"device_ms_of_{own}*": own_ms}
+            f"device_ms_of_{tag}": own_ms}
 
 
 def haar_cases(dev):
@@ -121,23 +140,9 @@ def haar_cases(dev):
 
 
 def mc_case(dev, clip):
-    import numpy as np
-    import torch
-
-    import dsv1_tpu_torch as dt
     from dsv1_tpu_torch.ops import bmc
-    from dsv1_tpu_torch.parallel.gop import build_gop_encoder
-    from dsv1_tpu_torch.utils.golden import GOP, QUALITY_PCT, clip_frames
 
-    _yuv, frames = clip_frames(clip)
-    h, w = frames[0][0].shape
-    enc = build_gop_encoder(dt.SUBSAMP_420, w, h, GOP,
-                            dt.quality_percent(QUALITY_PCT), True, 4, 50,
-                            GOP - 1, 0, str(dev))
-    packed = torch.from_numpy(np.stack([
-        np.concatenate([np.asarray(p, np.uint8).ravel() for p in f])
-        for f in frames[:GOP]])).to(dev)
-    imgs, _al, mv, _hr = enc.motion(packed)
+    enc, imgs, mv = gop_motion(dev, clip)
     k = int(mv["nintra"].argmax())
     img, lay = imgs[0][k], enc.layouts[0]
     fields = tuple(mv[key][k] for key in ("mode", "mvx", "mvy", "submask"))
@@ -257,6 +262,84 @@ def hme_effort_cases(dev, clip, effort=3):
     return rows
 
 
+def recon_cases(dev, clip):
+    """The recon chain's frame step on a clip's second frame (see the
+    module docstring), on whichever functions the port has."""
+    import torch
+
+    from dsv1_tpu_torch.models.encoder import (build_encode_core,
+                                               coef_geometry)
+    from dsv1_tpu_torch.ops import bmc, frame as fr, hzcc, sbt
+
+    enc, imgs, mv = gop_motion(dev, clip)
+    w, h = enc.w, enc.h
+    core = build_encode_core(enc.subsamp, w, h, True)
+    stable = torch.zeros(enc.nbh * enc.nbv, dtype=torch.uint8, device=dev)
+    fields = tuple(mv[k][0] for k in ("mode", "mvx", "mvy", "submask"))
+    img, ref = imgs[0][1], imgs[0][0]
+    q = enc.quant
+    rows = [timed(f"encode core {clip} P frame", lambda: core(
+                img, ref, True, q, stable, *fields), 20, OWN_KERNELS),
+            timed(f"encode core {clip} I frame", lambda: core(
+                img, None, False, q, stable, None, None, None, None), 20,
+                OWN_KERNELS)]
+    layout, dims, tables = coef_geometry(enc.subsamp, w, h, enc.nbh,
+                                         enc.nbv)
+    preds = bmc.compensate_frame(ref, layout, enc.blk_w, enc.blk_h, enc.nbh,
+                                 enc.nbv, *fields)
+    luma = fr.plane_view(img, layout, 0)
+    src = luma.to(torch.int32) - 128
+    if hasattr(bmc, "residual_in"):
+        rows.append(timed(f"residual_in {clip} P frame", lambda: (
+            bmc.residual_in(img, layout, dims, preds)), 50, OWN_KERNELS))
+    b4t = getattr(sbt, "b4t_fwd", sbt._b4t_fwd_2d)
+    rows.append(timed(f"{b4t.__name__} {clip} luma", lambda: b4t(src), 50,
+                      OWN_KERNELS))
+    res = bmc.sub_residual(luma, preds[0]).to(torch.int32) - 128
+    coefs = sbt.fwd_sbt(res, True)
+    qv, wb = hzcc.encode_plane_core(coefs, q, True, 0, stable, tables[0])
+    rows.append(timed(f"encode_plane_core {clip} luma P", lambda: (
+        hzcc.encode_plane_core(coefs, q, True, 0, stable, tables[0])), 50,
+        OWN_KERNELS))
+    rows.append(timed(f"dequant_plane_grid {clip} luma P", lambda: (
+        hzcc.dequant_plane_grid(wb, 5, q, True, 0, stable, tables[0])), 50,
+        OWN_KERNELS))
+    if hasattr(sbt, "inv_sbt_recon"):
+        out = torch.zeros_like(img)
+
+        def recon():
+            sbt.inv_sbt_recon(wb, q, True, True, out, layout, 0, preds[0])
+        unit = "inv_sbt_recon"
+    else:
+        def recon():
+            return bmc.add_residual(preds[0], sbt.coefs_to_plane(
+                sbt.inv_sbt(wb, q, True, True)))
+        unit = "inv_sbt + coefs_to_plane + add_residual"
+    rows.append(timed(f"{unit} {clip} luma P", recon, 50, OWN_KERNELS))
+    return rows
+
+
+def gop_motion(dev, clip):
+    """(GopEncoder, images, motion) of a clip's first GOP."""
+    import numpy as np
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.parallel.gop import build_gop_encoder
+    from dsv1_tpu_torch.utils.golden import GOP, QUALITY_PCT, clip_frames
+
+    _yuv, frames = clip_frames(clip)
+    h, w = frames[0][0].shape
+    enc = build_gop_encoder(dt.SUBSAMP_420, w, h, GOP,
+                            dt.quality_percent(QUALITY_PCT), True, 4, 50,
+                            GOP - 1, 0, str(dev))
+    packed = torch.from_numpy(np.stack([
+        np.concatenate([np.asarray(p, np.uint8).ravel() for p in f])
+        for f in frames[:GOP]])).to(dev)
+    imgs, _al, mv, _hr = enc.motion(packed)
+    return enc, imgs, mv
+
+
 def e2e_case(dev, reps: int, clip: str = "1080p"):
     """Host seconds of each of reps encodes and decodes of a golden clip
     (`encode_stream_gops` with the clip's arguments: 24 frames, gop 12,
@@ -302,9 +385,9 @@ def main():
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose dsv1_tpu_torch is timed")
     ap.add_argument("--out", default=None, help="also write JSON here")
-    ap.add_argument("--only", default="haar,mc,hme",
-                    help="comma-separated cases to time (haar, mc, hme; "
-                         "none for --e2e alone)")
+    ap.add_argument("--only", default="haar,mc,hme,recon",
+                    help="comma-separated cases to time (haar, mc, hme, "
+                         "recon; none for --e2e alone)")
     ap.add_argument("--e2e", type=int, default=0, metavar="N",
                     help="also time N encodes and decodes of a clip")
     ap.add_argument("--e2e-clip", default="1080p",
@@ -329,6 +412,8 @@ def main():
         rows += (hme_effort_cases(dev, "1080p")
                  + hme_effort_cases(dev, "4k_cli")
                  + hme_effort_cases(dev, "cif"))
+    if "recon" in only:
+        rows += recon_cases(dev, "1080p") + recon_cases(dev, "4k_cli")
     if args.e2e:
         rows.append(e2e_case(dev, args.e2e, args.e2e_clip))
     res = {"root": str(Path(dsv1_tpu_torch.__file__).parent.parent),

@@ -21,9 +21,10 @@ events), and the encode's `overflow_redos` (GOPs whose compacted planes
 overflowed, dsv1_tpu_torch/utils/stats.py; null on a tree without
 it); then profiles the decode of the stream the same way. The same
 encode also runs once without the profiler, so the profiler's own cost
-shows. The last line sums up the encode: kernels, host reads and their
-bytes per frame, the unprofiled wall and the spans' seconds. Needs a
-CUDA device.
+shows, and the decode once without it too. The last line sums up:
+the encode's kernels, host reads and their bytes per frame, both
+busy shares and unprofiled walls, and the spans' seconds. Needs a CUDA
+device.
 
     python3 tools/torch_profile.py [--clip NAME] [--out FILE]
         [--gops-per-device N]
@@ -159,6 +160,10 @@ def main():
     t0 = _sync()
     encode()
     plain_wall = _sync() - t0
+    decode(stream)      # warm-up
+    t0 = _sync()
+    decode(stream)
+    dec_plain_wall = _sync() - t0
     if STATS is not None:
         STATS.clear()
     enc_wall, enc_busy, spans, enc_top, enc_k, enc_r, enc_b = profile(encode)
@@ -181,7 +186,8 @@ def main():
                       "d2h_bytes_per_frame": per_frame(enc_b),
                       "overflow_redos": redos,
                       "top_kernels_us": enc_top},
-           "decode": {"profiled_wall_s": dec_wall,
+           "decode": {"wall_s": dec_plain_wall,
+                      "profiled_wall_s": dec_wall,
                       "device_busy_share": dec_busy,
                       "kernels_per_frame": dec_k / nf,
                       "host_reads_per_frame": dec_r / nf,
@@ -195,7 +201,10 @@ def main():
                       "encode_d2h_bytes_per_frame": per_frame(enc_b),
                       "overflow_redos": redos,
                       "decode_kernels_per_frame": dec_k / nf,
-                      "encode_wall_s": plain_wall, "spans_s": spans}))
+                      "encode_busy_share": enc_busy,
+                      "decode_busy_share": dec_busy,
+                      "encode_wall_s": plain_wall,
+                      "decode_wall_s": dec_plain_wall, "spans_s": spans}))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
