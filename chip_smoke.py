@@ -30,12 +30,14 @@ non-zero:
    (`sbt.inv_sbt`, and `inv_sbt_recon` with the recon epilogue into the
    frame image), stage by stage on CIF, 1080p and 4K golden frames, I
    and P, every plane, B = 1 and batched with a quant per frame, fuzzed
-   coefficients, 100x84 (aliasing bands), 98x82, and 4:2:2 and 4:1:1
-   chroma; each timed on its 1080p unit (a luma plane; the prologue a
-   frame), with 4K and CIF beside it. Equality is exact (tolerance
+   coefficients, 100x84 (aliasing bands), 98x82, 4:2:2 and 4:1:1
+   chroma, odd level sizes at several depths (102x86 and 1918x1078, C =
+   4 with a quant per plane, int32 stability maps at 1918x1078) and the
+   inverse's largest coarse stage (1776x1760); each timed on its 1080p
+   unit (a luma plane; the prologue a frame), with 4K and CIF beside it. Equality is exact (tolerance
    0: the codec is integer-only). Each kernel is timed with CUDA events
-   after warm-up, wrappers included, and with torch.profiler's kernel
-   sums (device only). Each row gets the least time the card could take
+   after warm-up, wrappers included, and with torch.profiler (device
+   only: the union of each call's kernel intervals). Each row gets the least time the card could take
    for the same work (bytes over 3.35 TB/s, integer operations over 132
    SMs x 64 INT32 lanes x the SM clock, the larger of the two). The HME
    rows count a 4-pixel SAD as one instruction (VABSDIFF4.U8.ACC, which
@@ -459,9 +461,24 @@ def gop_motion(dev, frames, G=None, effort=0):
     return enc, imgs, mv, calls
 
 
+def union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur = 0.0, None
+    for a, b in sorted(intervals):
+        if cur is None or a > cur[1]:
+            total += 0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return total + (0 if cur is None else cur[1] - cur[0])
+
+
 def device_ms(fn, reps: int) -> float:
-    """Device time of fn() per call: torch.profiler's kernel sums over
-    reps calls (memcpy and memset left out), after one warm-up."""
+    """Device time of fn() per call over reps calls, after one warm-up:
+    the union of torch.profiler's kernel intervals (memcpy and memset
+    left out), which is the kernels' sum where they do not overlap; a
+    kernel chained by programmatic dependent launch (the inverse's) starts
+    before the one it waits on ends, and its duration counts that wait."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -472,10 +489,11 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not e.key.startswith(("Memcpy", "Memset")))
-    return us * 1e-3 / reps
+    return union_us((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset"))) \
+        * 1e-3 / reps
 
 
 def fuzz_cands(rng, dev, B, nb, w, h):
@@ -759,7 +777,10 @@ def recon_rows(dev, bound, clips):
     and batched with a quant per frame (CIF 4, 1080p 3, 4K 2; chroma
     quants past CHROMA_LIMIT too), on fuzzed coefficients at 1080p, and
     on random frames at 100x84 (aliasing bands), 98x82 (odd chroma dims
-    rounded up) and 4:2:2 and 4:1:1 at 96x80 and 1920x1080; then each
+    rounded up) and 4:2:2 and 4:1:1 at 96x80 and 1920x1080, at 102x86
+    and 1918x1078 (odd level sizes at several depths; C = 4, a quant per
+    plane; int32 stability maps) and at 1776x1760 (the inverse's largest
+    coarse stage, fuzzed coefficients once); then each
     kernel timed on the main path's unit of work at 1080p (a luma plane,
     residual_in a frame; the recon with its P prediction), with *_4k and
     *_cif beside it. Returns the rows and each case's errors."""
@@ -797,6 +818,26 @@ def recon_rows(dev, bound, clips):
             e = check_recon_chain(dev, case, is_p, [85, 600, 1540])
             cases.append({"case": f"{w}x{h} {fmt} "
                           f"{'P' if is_p else 'I'} B=3", "errors": e})
+    # tiles, halos and segment runs on odd level sizes at several depths,
+    # a quant per plane of a C = 4 batch, int32 stability maps, and the
+    # largest coarse stage of the inverse (a 48,840-byte corner in every
+    # plane, its threads holding up to 3 quads a level)
+    for (w, h), C, q, i32, fuzz in (
+            ((102, 86), 4, [85, 600, 1540, 2047], False, False),
+            ((1918, 1078), 4, [85, 600, 1540, 300], True, False),
+            ((1776, 1760), 2, [300, 2047], False, False),
+            ((1776, 1760), 2, [700, 90], True, True)):
+        lay, dims, tabs, img, preds, stable = recon_frames(
+            dev, dt.SUBSAMP_420, (w, h), C, w + C)
+        if i32:
+            stable = stable.to(torch.int32)
+        case = (lay, dims, tabs, img, preds, stable)
+        for is_p in (False, True):
+            e = check_recon_chain(dev, case, is_p, q, fuzz)
+            cases.append({"case": f"{w}x{h} 4:2:0 {'P' if is_p else 'I'} "
+                          f"B={C}" + (" int32 stable" if i32 else "")
+                          + (" fuzz" if fuzz else ""), "errors": e})
+        del case, img, preds
     for c in cases:
         for k, v in c["errors"].items():
             worst[k] = max(worst.get(k, 0), v)
@@ -2390,7 +2431,13 @@ def main():
         raise SystemExit("chip_smoke: CUDA is not available")
     # fail before printing anything when the port is not beside this file
     sys.path.insert(0, str(ROOT))
-    import dsv1_tpu_torch  # noqa: F401
+    try:
+        import dsv1_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        if e.name != "dsv1_tpu_torch":
+            raise
+        raise SystemExit(f"chip_smoke: dsv1_tpu_torch is not beside {ROOT}: "
+                         "run this script from a checkout of the repository")
     from dsv1_tpu_torch.utils import golden as g
 
     smi, clock_hz = phase_device()

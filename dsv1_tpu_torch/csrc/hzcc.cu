@@ -9,32 +9,56 @@
 // (hzcc.c:59-135), written in traversal order, and written back
 // dequantized (hzcc.c:174,227,262).
 //
-// One thread per grid position. The traversal is a concatenation of at
-// most kMaxSegs rectangles; a thread walks them in traversal order and,
-// for each one that contains its position, computes the TMQ from the
-// stability flag of its block (the 14-bit fixed-point block map of
-// build_tables), quantizes the value it currently holds, writes that
-// quantized value at the segment's offset plus its raster index, and
-// carries the write-back on. Quantization is elementwise, so that chain
-// is the sequential band order even where odd ceil dims make bands alias:
-// the encoder quantizes what an earlier band wrote back. The decoder
-// dequantizes the grid value itself for every segment, so the last
-// segment wins (the parser's visit order). Positions no segment covers
-// keep their value (encoder) or become 0 (decoder). The DC is zeroed
-// before the chain and restored after it.
+// The traversal is a concatenation of at most kMaxSegs rectangles. Each
+// grid position walks the ones that contain it in traversal order and,
+// for each, computes the TMQ from the stability flag of its block (the
+// 14-bit fixed-point block map of build_tables), quantizes the value it
+// currently holds, writes that quantized value at the segment's offset
+// plus its raster index, and carries the write-back on. Quantization is
+// elementwise, so that chain is the sequential band order even where odd
+// ceil dims make bands alias: the encoder quantizes what an earlier band
+// wrote back. The decoder dequantizes the grid value itself for every
+// segment, so the last segment wins (the parser's visit order). Positions
+// no segment covers keep their value (encoder) or become 0 (decoder). The
+// DC is zeroed before the chain and restored after it.
 //
 // The quant is a scalar or a device int32 per plane of the batch (an ABR
-// decode carries one per picture): the kernel derives the plane's
-// quantizer parameters from it (frame_quants) and never hands it back to
+// decode carries one per picture): the kernels derive the plane's
+// quantizer parameters from it (frame_quants) and never hand it back to
 // the host.
 //
 // Bound by memory: the encoder reads each int32 coefficient and writes it
 // back and writes about one quantized value per position (12 bytes a
 // position, about 25 MB for a 1080p luma plane: 7.4 us at 3.35 TB/s);
-// the decoder reads and writes 8 bytes a position. The stability map is a
-// few KB and stays in L1. Neighbouring threads take neighbouring columns,
-// so every read and write is a coalesced row segment.
-
+// the decoder reads and writes 8 bytes a position.
+//
+// hzcc_quant_kernel keeps per-plane work out of the per-position path
+// (done for every position, frame_quants, all ten segments' bound tests
+// and a division by a step known only at run time cost about 250
+// integer instructions a position). A
+// block takes a tile of 4 rows by 256 columns of one plane, and a thread
+// 4 positions of a row (64 columns and 1 position for a batch of small
+// planes, which would otherwise leave SMs idle):
+// - per block, once: frame_quants, the plane's at most seven distinct
+//   steps (qp_ll, and tmq4pos of qp0 and of qp1 in its three cases of
+//   the stability flag) with a multiply-high reciprocal each (`Div`: exact floor
+//   division of every dividend below 2^31, far above the 2 |v| + 1 the
+//   quantizer divides), the two shifts of the finest level, and the list
+//   of segments that touch the tile, in traversal order, in shared
+//   memory;
+// - per thread: the row test of each listed segment once, then per
+//   position the column test, the stability class (one L1-cached read of
+//   the block map, whose row is resolved once per segment), a table read
+//   and a multiply-high;
+// - a thread's positions 32 columns apart, so that every warp load and
+//   store, the traversal values' included, is one coalesced 128-byte row
+//   segment (with four neighbouring positions a thread, each warp's
+//   traversal-value store spans 512 bytes: 16.1 us for a 1080p luma
+//   plane with 16-byte loads and stores of the coefficients and the
+//   grid, against 10.7, probe variants adj16 and base); the
+//   coefficients' loads are issued before the block's setup barrier.
+// hzcc_dequant_kernel takes one thread a grid position, which walks all
+// the segments.
 #include "common.cuh"
 
 using namespace dsv1;
@@ -102,14 +126,6 @@ __device__ __forceinline__ int tmq4pos(int qp, int st) {
   return max(t, kMinQuant);
 }
 
-__device__ __forceinline__ int quant_lo(int v, int q) {
-  if (v == 0) return 0;
-  const int a = absi(v) << 1;
-  if (a <= q) return 0;
-  const int mag = (a + 1) / (q << 1);
-  return v < 0 ? -mag : mag;
-}
-
 __device__ __forceinline__ int dequant_lo(int v, int q) {
   const int m = (absi(v) * (q << 1) + q) >> 1;
   return v < 0 ? -m : m;
@@ -147,29 +163,167 @@ __device__ __forceinline__ int plane_quant(const Args& A, int b) {
   return A.q ? A.q[b * A.qstride] : A.qscalar;
 }
 
+// Exact floor(n / d) of 0 <= n < 2^31 for a divisor d >= 2 known only at
+// run time: umulhi(n, m) >> s with m = floor(2^(31 + l) / d) + 1, l =
+// ceil(log2 d), s = l - 1 (Granlund and Montgomery, "Division by
+// invariant integers using multiplication", Theorem 4.2 with N = 31:
+// 2^(31 + l) < m d <= 2^(31 + l) + d <= 2^(31 + l) + 2^l, and m < 2^32).
+struct Div {
+  unsigned m;
+  int s;
+};
+
+__device__ __forceinline__ Div make_div(unsigned d) {
+  int l = 0;
+  while ((1u << l) < d) ++l;
+  Div r;
+  r.m = (unsigned)(((unsigned long long)1 << (31 + l)) / d + 1);
+  r.s = l - 1;
+  return r;
+}
+
+__device__ __forceinline__ int div_by(int n, const Div& D) {
+  return (int)(__umulhi((unsigned)n, D.m) >> D.s);
+}
+
+// quant_lo with the step's reciprocal D (of 2 q)
+__device__ __forceinline__ int quant_lo_div(int v, int q, const Div& D) {
+  const int a = absi(v) << 1;
+  if (a <= q) return 0;  // v == 0 included
+  const int mag = div_by(a + 1, D);
+  return v < 0 ? -mag : mag;
+}
+
+// A tile: kTileH rows of 64 kQx columns, a thread kQx positions of a row,
+// lane l of a warp columns l + 32 j of the warp's 32 kQx
+constexpr int kTileX = 64, kTileH = kThreads / kTileX;
+// kQx = 4 where a plane batch has at least this many such tiles (4 blocks
+// an SM), else 1, so that small planes keep enough blocks in flight. On
+// the H100 each wins on its side (tools/torch_recon_probe.py q4/q1 in
+// turns, PERF.md section 6): kQx = 1 takes 3.2 us against 4.2 for a CIF
+// luma plane (144 tiles of 4) and 3.5 against 4.6 for a batch of 4 CIF
+// chroma planes (144); kQx = 4 takes 5.7 us against 6.2 for a batch of 4
+// CIF luma planes (576), 4.9 against 6.3 for a 1080p chroma plane (540),
+// 10.7 against 19.7 for a 1080p luma plane
+constexpr int kMinTiles4 = 4 * 132;
+constexpr int kSteps = 7;  // qp_ll, tmq4pos(qp0, class), tmq4pos(qp1, class)
+
+// the stability class of a flag: tmq4pos's (st & 2) ? >> 2 : st ? >> 1
+__device__ __forceinline__ int stable_class(int st) {
+  return (st & 2) ? 2 : (st ? 1 : 0);
+}
+
+// A segment of the traversal as a tile holds it
+struct TileSeg {
+  int lvl, oy, ox, sh, sw, off, dbx, dby;
+};
+
+template <int kQx>
 __global__ void __launch_bounds__(kThreads)
 hzcc_quant_kernel(const int* __restrict__ coefs, int64_t cbatch, int H,
                   int W, Segs S, Args A, int* __restrict__ qvals, int64_t N,
                   int* __restrict__ work, int64_t wbatch) {
-  const int x = blockIdx.x * 32 + threadIdx.x;
-  const int y = blockIdx.y * 8 + threadIdx.y;
+  __shared__ int s_step[kSteps];
+  __shared__ Div s_div[kSteps];
+  __shared__ int s_shift[2];
+  __shared__ TileSeg s_seg[kMaxSegs];
+  __shared__ int s_nseg;
   const int b = blockIdx.z;
-  if (x >= W || y >= H) return;
-  const Quants Q = frame_quants(plane_quant(A, b), A.is_p, A.chroma);
-  const int raw = coefs[b * cbatch + (int64_t)y * W + x];
-  int v = (x == 0 && y == 0) ? 0 : raw;  // hzcc.c:171 src[0] = 0
-  int* qo = qvals + b * N;
-  for (int k = 0; k < S.n; ++k) {
-    const int ly = y - S.oy[k], lx = x - S.ox[k];
-    if (ly < 0 || lx < 0 || ly >= S.sh[k] || lx >= S.sw[k]) continue;
-    int hi;
-    const int p = seg_param(S, k, ly, lx, Q, A, b, &hi);
-    const int qv = hi ? quant_hi(v, p) : quant_lo(v, p);
-    qo[S.off[k] + ly * S.sw[k] + lx] = qv;
-    v = qv == 0 ? 0 : (hi ? dequant_hi(qv, p) : dequant_lo(qv, p));
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  constexpr int kTileW = kTileX * kQx;
+  const int tx0 = blockIdx.x * kTileW, ty0 = blockIdx.y * kTileH;
+  const int y = ty0 + threadIdx.y;
+  // this thread's columns: x0 + 32 j, so that each warp access is one
+  // coalesced row segment
+  const int x0 = tx0 + (threadIdx.x >> 5) * 32 * kQx + (threadIdx.x & 31);
+  const bool live = y < H;
+  const int* crow = coefs + b * cbatch + (int64_t)y * W;
+  // the coefficients load while the block sets up
+  int v[kQx];
+#pragma unroll
+  for (int j = 0; j < kQx; ++j)
+    v[j] = live && x0 + 32 * j < W ? __ldg(crow + x0 + 32 * j) : 0;
+  if (tid < kSteps + 1) {
+    const Quants Q = frame_quants(plane_quant(A, b), A.is_p, A.chroma);
+    if (tid == kSteps) {
+      s_shift[0] = Q.q2;
+      s_shift[1] = Q.q2h;
+    } else {
+      const int cls = (tid - 1) % 3;
+      const int q = tid == 0 ? Q.ll : tmq4pos(tid < 4 ? Q.ll : Q.q1,
+                                              cls == 2 ? 2 : cls);
+      s_step[tid] = q;
+      s_div[tid] = make_div(2u * (unsigned)q);
+    }
+  } else if (tid == 32) {
+    // the segments that touch this tile, in traversal order
+    int n = 0;
+    for (int k = 0; k < S.n; ++k) {
+      if (S.oy[k] >= ty0 + kTileH || S.oy[k] + S.sh[k] <= ty0 ||
+          S.ox[k] >= tx0 + kTileW || S.ox[k] + S.sw[k] <= tx0)
+        continue;
+      s_seg[n] = TileSeg{S.lvl[k], S.oy[k], S.ox[k], S.sh[k],
+                         S.sw[k], S.off[k], S.dbx[k], S.dby[k]};
+      ++n;
+    }
+    s_nseg = n;
   }
-  // dsv_encode_plane restores the raw DC
-  work[b * wbatch + (int64_t)y * W + x] = (x == 0 && y == 0) ? raw : v;
+  __syncthreads();
+  if (!live) return;
+  const int raw0 = v[0];
+  const bool dc = x0 == 0 && y == 0;
+  if (dc) v[0] = 0;  // hzcc.c:171 src[0] = 0
+  int* qo = qvals + b * N;
+  const int nseg = s_nseg;
+  for (int t = 0; t < nseg; ++t) {
+    const TileSeg g = s_seg[t];
+    const int ly = y - g.oy;
+    if (ly < 0 || ly >= g.sh) continue;
+    const int lx0 = x0 - g.ox;
+    int* qrow = qo + g.off + ly * g.sw;
+    if (g.lvl < 0) {
+      const int q = s_step[0];
+      const Div D = s_div[0];
+#pragma unroll
+      for (int j = 0; j < kQx; ++j) {
+        const int lx = lx0 + 32 * j;
+        if (lx < 0 || lx >= g.sw) continue;
+        const int qv = quant_lo_div(v[j], q, D);
+        qrow[lx] = qv;
+        v[j] = qv == 0 ? 0 : dequant_lo(qv, q);
+      }
+      continue;
+    }
+    const int bj = (ly * g.dby) >> kBlockP;
+    const int64_t srow = b * A.sstride + (int64_t)bj * A.nbh;
+    const int base = g.lvl == 0 ? 1 : 4;
+#pragma unroll
+    for (int j = 0; j < kQx; ++j) {
+      const int lx = lx0 + 32 * j;
+      if (lx < 0 || lx >= g.sw) continue;
+      const int64_t idx = srow + ((lx * g.dbx) >> kBlockP);
+      const int st =
+          A.stable_u8 ? (int)__ldg(static_cast<const uint8_t*>(A.stable) + idx)
+                      : __ldg(static_cast<const int*>(A.stable) + idx);
+      int qv;
+      if (g.lvl == 2) {
+        const int sft = s_shift[st != 0];
+        qv = quant_hi(v[j], sft);
+        v[j] = qv == 0 ? 0 : dequant_hi(qv, sft);
+      } else {
+        const int k = base + stable_class(st);
+        const int q = s_step[k];
+        qv = quant_lo_div(v[j], q, s_div[k]);
+        v[j] = qv == 0 ? 0 : dequant_lo(qv, q);
+      }
+      qrow[lx] = qv;
+    }
+  }
+  if (dc) v[0] = raw0;  // dsv_encode_plane restores the raw DC
+  int* wrow = work + b * wbatch + (int64_t)y * W;
+#pragma unroll
+  for (int j = 0; j < kQx; ++j)
+    if (x0 + 32 * j < W) wrow[x0 + 32 * j] = v[j];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -247,8 +401,18 @@ extern "C" int dsv1_hzcc_quant(const int* coefs, int64_t cbatch, int H, int W,
     return (int)cudaErrorInvalidValue;
   const Args A{q, qstride, qscalar, stable, sstride, stable_u8, nbh, is_p,
                plane > 0};
-  hzcc_quant_kernel<<<grid_of(H, W, C), dim3(32, 8), 0, stream>>>(
-      coefs, cbatch, H, W, S, A, qvals, N, work, wbatch);
+  const int64_t tiles4 = (int64_t)((W + 4 * kTileX - 1) / (4 * kTileX)) *
+                        ((H + kTileH - 1) / kTileH) * C;
+  if (tiles4 >= kMinTiles4)
+    hzcc_quant_kernel<4><<<dim3((W + 4 * kTileX - 1) / (4 * kTileX),
+                                (H + kTileH - 1) / kTileH, C),
+                           dim3(kTileX, kTileH), 0, stream>>>(
+        coefs, cbatch, H, W, S, A, qvals, N, work, wbatch);
+  else
+    hzcc_quant_kernel<1><<<dim3((W + kTileX - 1) / kTileX,
+                                (H + kTileH - 1) / kTileH, C),
+                           dim3(kTileX, kTileH), 0, stream>>>(
+        coefs, cbatch, H, W, S, A, qvals, N, work, wbatch);
   return (int)cudaGetLastError();
 }
 

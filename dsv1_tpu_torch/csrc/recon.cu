@@ -30,26 +30,58 @@
 // u8 clamps are those of ops/cint.py and the plain versions; all
 // arithmetic is int32, as there.
 //
-// inv_sbt's split: each level needs the whole LL region of the level
-// above, so levels are sequential. As in the forward pyramid, the small
-// levels (the top levels, whose output has at most ops/sbt.py's
-// INV_SMALL_MAX values) run in one thread block per plane in shared
-// memory, the last of them writing to device memory; every larger level is one
-// launch over the batch, one thread per output pixel, the LL region read
-// from the previous level's buffer and the bands from the coefficient
-// array; the last level (level 1) carries the epilogue, or writes int32
-// where the caller asks for the coefficient plane. The wrapper
-// (ops/sbt.py `inv_plan`) chooses the split; its launches are 1 (the
-// small stage, when the top level is above 1) plus one per remaining
-// level.
+// residual_in and b4t_fwd are bound by memory: residual_in reads 1 or 2
+// bytes and writes 4 a position, b4t_fwd reads 4 and writes 4 plus 1 for
+// the LL copy. Each thread reads its taps (up to 16 values for a B4T
+// output) from the L1 cache, which its neighbours share; a thread takes
+// one output and neighbouring threads neighbouring columns, so writes
+// coalesce.
 //
-// Bound by memory, all three: residual_in reads 1 or 2 bytes and writes
-// 4 a position, b4t_fwd reads 4 and writes 4 plus 1 for the LL copy,
-// inv_sbt reads each band value once and the last level's 4 bytes, its
-// coarser levels a third more, and writes one u8 (the border too). Each
-// thread reads its taps (up to 16 values for a B4T output) from the L1
-// cache, which its neighbours share; a thread takes one output and
-// neighbouring threads neighbouring columns, so writes coalesce.
+// inv_sbt is bound by memory too: it reads each band value once and
+// writes one u8 a pixel (the border too), 3.8 us for a 1080p luma plane's
+// recon at 3.35 TB/s. Each level needs the whole LL region of the level
+// above, so levels are dependent, and the small top levels are latency,
+// not bytes: a few short launches, each level's values read once into
+// shared memory, each nudge computed once (the wrapper's `inv_plan`
+// chooses the split):
+// - the coarse stage: one 1024-thread block per plane copies the corner
+//   of the coefficient array that levels top..lo read (lo >= 3; a corner
+//   of at most 48 KB: 32 KB at 1080p, levels 11..5) into shared memory
+//   with asynchronous 16-byte copies, then runs those levels there, each
+//   level's output into one of two shared buffers, a block barrier a
+//   level (levels of at most 64 quads on one warp). Level lo writes to
+//   device memory. A level is a chain of dependent steps on one SM
+//   (about 1,000 to 1,500 cycles a level of at most one quad a thread,
+//   clock64() stamps of tools/torch_recon_probe.py), so each quad's step
+//   is kept short: the bands read unconditionally inside the staged
+//   corner (`coarse_quad_out`), the quad row by a multiply-high, each
+//   level's geometry computed while the corner loads. One level deeper,
+//   the corner and buffers (260,160 bytes for levels 11..4 of a 1080p
+//   luma plane or 12..5 of a 4K one) would not fit the block's 232,448.
+// - then levels lo - 1..3, two a launch where they pair, a tile of 32x16
+//   quads a block (none at CIF, a pair for 1080p luma, a level for 1080p
+//   chroma, a pair and a level for 4K luma).
+// - the last launch runs levels 2 and 1 together.
+// A two-level launch stages the LL entering its upper level over its
+// tile with a two-value halo, computes that level's output over the tile
+// and a one-value halo into shared memory (the halo's quads are
+// recomputed by the neighbouring tiles), then the lower level: Haar, or
+// at level 1 of an I plane the B4T's column pass into shared memory, then
+// its row pass, and the epilogue: a tile off the plane's edges stores
+// each thread's pixel pairs straight from registers; an edge tile stages
+// its pixels in shared memory and writes them with the replicated border
+// (each image pixel by one block), 32-bit words where the image allows.
+// A thread computes two 2x2 quads 8 rows apart (one or four a thread:
+// 25.0 and 24.2 us against 22.2 for a 1080p luma recon, 58.6 and 52.2
+// against 49.5 at 4K; tools/torch_recon_probe.py lr1, lr4):
+// it loads LL, LH, HL and HH once (the LL neighbourhood from shared
+// memory, the bands straight from device memory, coalesced, since each
+// band value is read by one thread once) and computes each nudge once.
+// Every launch is chained to the one before by programmatic dependent
+// launch: it may start while the previous kernel runs, loads its bands
+// and the prediction, and waits (griddepcontrol.wait) only before it
+// reads the previous level's output. 1080p: 3 launches a plane; 4K 4 a
+// luma plane, 3 a chroma plane; CIF 2 a plane.
 
 #include "common.cuh"
 
@@ -60,7 +92,18 @@ namespace {
 constexpr int kMinQuant = 16;  // MINQUANT
 constexpr int kMaxLvl = 3;     // MAXLVL
 constexpr int kQpI = 3, kQpP = 1;
-constexpr int kSmallThreads = 512;
+constexpr int kCoarseThreads = 1024;
+constexpr int kCoarseSmem = 232448;  // a block's shared memory on sm_90
+constexpr int kMaxLevels = 31;  // levels of a plane below 2^31 wide
+// a tile: kTQX x kLQY quads, a thread kLR quads kTQY rows apart
+constexpr int kTQX = 32, kTQY = 8, kLR = 2, kLQY = kTQY * kLR;
+static_assert(kTQX * kTQY == kThreads, "a thread a quad column");
+// the LL entering a tile's lower level with its one-value halo; the quads
+// of its upper level behind it, and their LL with its halo
+constexpr int kHW = kTQX + 2, kH1H = kLQY + 2;
+constexpr int kQ2W = kTQX / 2 + 2, kQ2H = kLQY / 2 + 2;
+constexpr int kL2W = kQ2W + 2, kL2H = kQ2H + 2;
+constexpr int kQ2N = (kQ2W * kQ2H + kThreads - 1) / kThreads;  // a thread
 
 __device__ __forceinline__ int round_sym(int v, int add, int shift) {
   const int r = (absi(v) + add) >> shift;
@@ -77,10 +120,9 @@ __device__ __forceinline__ int get_quant(int q, int is_p, int level) {
   return max(q, kMinQuant);
 }
 
+// the count of j in 0..30 with n > 2^j
 __device__ __forceinline__ int lb2(int n) {
-  int k = 0;
-  for (int j = 0; j < 31; ++j) k += n > (1 << j);
-  return k;
+  return n > 1 ? 32 - __clz(n - 1) : 0;
 }
 
 // get_HQP (sbt.c:667-696)
@@ -95,7 +137,7 @@ __device__ __forceinline__ int hqp_for_level(int q, int is_p, int i) {
   return hqp / 2;
 }
 
-__device__ __forceinline__ int round_shift(int x, int s) {
+__host__ __device__ __forceinline__ int round_shift(int x, int s) {
   return (x + (1 << s) - 1) >> s;
 }
 
@@ -104,7 +146,7 @@ struct Quad {
   int ws, hs, cw, ch, fw, fh;
 };
 
-__device__ __forceinline__ Quad quad_dims(int W, int H, int lvl) {
+__host__ __device__ __forceinline__ Quad quad_dims(int W, int H, int lvl) {
   Quad d;
   d.ws = round_shift(W, lvl - 1);
   d.hs = round_shift(H, lvl - 1);
@@ -125,76 +167,86 @@ __device__ __forceinline__ int nudge(int LL, int lo, int hi, int band,
   return band + clampi(nd, -hqp, hqp);
 }
 
-// One output pixel (y, x) of a Haar inverse level (sbt.c:351-574). ll:
-// the LL region entering the level (row stride lls, before the scale);
-// a: the coefficient array (row stride as) holding the level's bands.
-// hqp < 0: no filter (chroma).
-__device__ __forceinline__ int haar_inv_px(const int* ll, int64_t lls,
-                                           const int* a, int64_t as,
-                                           const Quad& d, bool scale,
-                                           int hqp, int y, int x) {
-  const int qy = y >> 1, qx = x >> 1;
-  auto sc = [scale](int v) { return scale ? v * 5 / 4 : v; };
-  const int LL = sc(ll[qy * lls + qx]);
-  int LH = qx < d.fw ? a[qy * as + d.cw + qx] : 0;
-  int HL = qy < d.fh ? a[(d.ch + qy) * as + qx] : 0;
-  const int HH = (qy < d.fh && qx < d.fw) ? a[(d.ch + qy) * as + d.cw + qx]
-                                          : 0;
+__device__ __forceinline__ int sc(int v) { return v * 5 / 4; }
+
+// The bands of quad (qy, qx) of a Haar level; B(r, c) reads the
+// coefficient array (0 past odd dims)
+template <class BF>
+__device__ __forceinline__ void quad_bands(BF B, const Quad& d, int qy,
+                                           int qx, int& LH, int& HL,
+                                           int& HH) {
+  LH = qx < d.fw ? B(qy, d.cw + qx) : 0;
+  HL = qy < d.fh ? B(d.ch + qy, qx) : 0;
+  HH = (qy < d.fh && qx < d.fw) ? B(d.ch + qy, d.cw + qx) : 0;
+}
+
+// The four outputs (2 qy + dy, 2 qx + dx), at o[2 dy + dx], of quad (qy,
+// qx) of a Haar inverse level (sbt.c:351-574). L(r, c): the LL entering
+// the level, scaled where the level scales, which at c == cw holds the
+// level's first LH column and at r == ch its first HL row (the nudge's
+// edge reads, scaled too). hqp < 0: no filter (chroma).
+template <class LF>
+__device__ __forceinline__ void haar_quad(LF L, int LH, int HL, int HH,
+                                          const Quad& d, int hqp, int qy,
+                                          int qx, int o[4]) {
+  const int LL = L(qy, qx);
   if (hqp >= 0) {
-    if (qx >= 1 && qx <= d.fw - 1 && qy <= d.fh - 1) {
-      const int lp = sc(ll[qy * lls + qx - 1]);
-      const int ln = sc(qx + 1 < d.cw ? ll[qy * lls + qx + 1]
-                                      : a[qy * as + d.cw]);
-      LH = nudge(LL, lp, ln, LH, hqp);
-    }
-    if (qy >= 1 && qy <= d.fh - 1 && qx <= d.fw - 1) {
-      const int up = sc(ll[(qy - 1) * lls + qx]);
-      const int dn = sc(qy + 1 < d.ch ? ll[(qy + 1) * lls + qx]
-                                      : a[d.ch * as + qx]);
-      HL = nudge(LL, up, dn, HL, hqp);
-    }
+    if (qx >= 1 && qx <= d.fw - 1 && qy <= d.fh - 1)
+      LH = nudge(LL, L(qy, qx - 1), L(qy, qx + 1), LH, hqp);
+    if (qy >= 1 && qy <= d.fh - 1 && qx <= d.fw - 1)
+      HL = nudge(LL, L(qy - 1, qx), L(qy + 1, qx), HL, hqp);
   }
-  const int sy = (y & 1) ? -1 : 1, sx = (x & 1) ? -1 : 1;
-  return (LL + sx * LH + sy * HL + sx * sy * HH) / 4;
+  o[0] = (LL + LH + HL + HH) / 4;
+  o[1] = (LL - LH + HL - HH) / 4;
+  o[2] = (LL + LH - HL - HH) / 4;
+  o[3] = (LL - LH - HL + HH) / 4;
 }
 
-// The value at (r, c) of level 1's in-place state of an intra plane: the
-// reconstructed LL corner from ll, the raw bands from a.
-__device__ __forceinline__ int b4t_full(const int* ll, int64_t lls,
-                                        const int* a, int64_t as, int ch,
-                                        int cw, int r, int c) {
-  return (r < ch && c < cw) ? ll[r * lls + c] : a[r * as + c];
+// Programmatic dependent launch (sm_90): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// previous kernel on its stream runs; dep_wait() returns once that kernel
+// has finished and its writes are visible, dep_launch() lets the next
+// kernel start. No-ops for a kernel launched without the attribute.
+__device__ __forceinline__ void dep_wait() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
 }
 
-// inverse B4T of one column c at output row y (n rows, m = n / 2): L rows
-// at 0..m-1, H rows at m..n-1 (sbt.c:195-238)
-__device__ __forceinline__ int b4t_inv_col(const int* ll, int64_t lls,
-                                           const int* a, int64_t as, int ch,
-                                           int cw, int m, int y, int c) {
-  const int k = y >> 1;
-  auto F = [&](int r) { return b4t_full(ll, lls, a, as, ch, cw, r, c); };
-  if ((y & 1) == 0) {
-    const int kp = max(k - 1, 0);
-    return round8(F(kp) + 3 * F(k) + F(m + kp) - 3 * F(m + k));
-  }
-  const int kn = min(k + 1, m - 1);
-  return round8(3 * F(k) + F(kn) + 3 * F(m + k) - F(m + kn));
+__device__ __forceinline__ void dep_launch() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  asm volatile("griddepcontrol.launch_dependents;");
+#endif
 }
 
-// One output pixel (y, x) of the intra level 1: the B4T inverse of the
-// (H, W) in-place state, columns then rows (inv_b4t_2d, sbt.c:253-265).
-__device__ __forceinline__ int b4t_inv_px(const int* ll, int64_t lls,
-                                          const int* a, int64_t as, int H,
-                                          int W, int y, int x) {
-  const int ch = H / 2, cw = W / 2, mw = W / 2, j = x >> 1;
-  auto V = [&](int c) { return b4t_inv_col(ll, lls, a, as, ch, cw, H / 2, y,
-                                           c); };
-  if ((x & 1) == 0) {
-    const int jp = max(j - 1, 0);
-    return round8(V(jp) + 3 * V(j) + V(mw + jp) - 3 * V(mw + j));
-  }
-  const int jn = min(j + 1, mw - 1);
-  return round8(3 * V(j) + V(jn) + 3 * V(mw + j) - V(mw + jn));
+// An asynchronous 4-byte copy from device to shared memory (sm_80):
+// copy_async issues it, copy_wait waits for the thread's copies.
+__device__ __forceinline__ void copy_async(int* dst, const int* src) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void copy_async16(int* dst, const int* src) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  for (int k = 0; k < 4; ++k) dst[k] = src[k];
+#endif
+}
+
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800
+  asm volatile("cp.async.wait_all;" ::: "memory");
+#endif
 }
 
 // One output value of the forward B4T along a line of n values at
@@ -227,45 +279,153 @@ __device__ __forceinline__ int level_hqp(const Inv& P, int b, int i) {
   return hqp_for_level(q, P.is_p, i);
 }
 
-// Small stage: one block per plane runs levels top..lo (lo >= 2) in
-// shared memory; level lo's output goes to dst (+ z * dbatch, row stride
-// its width).
-__global__ void __launch_bounds__(kSmallThreads)
-inv_small_kernel(Inv P, int top, int lo, int* __restrict__ dst,
-                 int64_t dbatch, int bufn) {
-  extern __shared__ int smem[];
-  const int b = blockIdx.x;
-  const int* a = P.a + b * P.abatch;
-  int* bufs[2] = {smem, smem + bufn};
-  const int* cur = a;  // level top reads the LL corner of a
-  int64_t curs = P.as;
-  for (int i = top, k = 0; i >= lo; --i, k ^= 1) {
-    const Quad d = quad_dims(P.W, P.H, i);
-    const int hqp = level_hqp(P, b, i);
-    int* out = i == lo ? dst + b * dbatch : bufs[k];
-    for (int p = threadIdx.x; p < d.hs * d.ws; p += kSmallThreads) {
-      const int y = p / d.ws, x = p - y * d.ws;
-      out[p] = haar_inv_px(cur, curs, a, P.as, d, true, hqp, y, x);
-    }
-    __syncthreads();
-    cur = out;
-    curs = d.ws;
+// Stages the LL entering level d (scaled where `scale`) at rows r0.. and
+// columns c0.. into T (nr x nc): inside the LL region from ll (row stride
+// lls), elsewhere (the level's first band row and column, which the
+// nudge reads) from a; 0 off the plane.
+__device__ __forceinline__ void stage_ll(int* T, int nr, int nc, int r0,
+                                         int c0, const int* ll, int64_t lls,
+                                         const int* a, const Inv& P,
+                                         const Quad& d, bool scale, int tid) {
+  for (int p = tid; p < nr * nc; p += kThreads) {
+    const int rr = p / nc, r = r0 + rr, c = c0 + (p - rr * nc);
+    int v = 0;
+    if (r >= 0 && c >= 0 && r < P.H && c < P.W)
+      v = (r < d.ch && c < d.cw) ? ll[(int64_t)r * lls + c]
+                                 : a[(int64_t)r * P.as + c];
+    T[p] = scale ? sc(v) : v;
   }
 }
 
-// One level i >= 2 over the batch: the LL region at ll (row stride lls,
-// + z * lbatch) into dst (+ z * dbatch, row stride the level's width).
-__global__ void __launch_bounds__(kThreads)
-inv_level_kernel(Inv P, int i, const int* __restrict__ ll, int64_t lls,
-                 int64_t lbatch, int* __restrict__ dst, int64_t dbatch) {
-  const Quad d = quad_dims(P.W, P.H, i);
-  const int x = blockIdx.x * 32 + threadIdx.x;
-  const int y = blockIdx.y * 8 + threadIdx.y;
-  const int b = blockIdx.z;
-  if (x >= d.ws || y >= d.hs) return;
-  dst[b * dbatch + (int64_t)y * d.ws + x] =
-      haar_inv_px(ll + b * lbatch, lls, P.a + b * P.abatch, P.as, d, true,
-                  level_hqp(P, b, i), y, x);
+// A level's quad index p as (p / cw, ...) without a division: m =
+// quad_rcp(cw), exact for p * cw < 2^32 (the coarse stage's levels hold at
+// most 232,448 / 4 values)
+__device__ __forceinline__ unsigned quad_rcp(int cw) {
+  return cw > 1 ? 0xffffffffu / (unsigned)cw + 1u : 0u;
+}
+__device__ __forceinline__ int quad_row(int p, int cw, unsigned m) {
+  return cw > 1 ? (int)__umulhi((unsigned)p, m) : p;
+}
+
+// The four outputs, at o[2 dy + dx], of quad (qy, qx) of a coarse level:
+// haar_quad on the stage's shared memory A, the LL entering the level at
+// A + in (row stride S; where the nudge reads past it, at column cw or
+// row ch, the level's first LH column and HL row in the staged corner),
+// the bands in the corner, read unconditionally (every such read is
+// inside A, whose corner the two LL buffers follow) and zeroed past odd
+// dims.
+__device__ __forceinline__ void coarse_quad_out(const int* A, int in, int S,
+                                                const Quad& d, int hqp,
+                                                int qy, int qx, int o[4]) {
+  const int* hrow = A + (d.ch + qy) * S;
+  const int lh = A[qy * S + d.cw + qx], hl = hrow[qx], hh = hrow[d.cw + qx];
+  auto L = [&](int r, int c) {
+    return sc(A[(r < d.ch && c < d.cw ? in : 0) + r * S + c]);
+  };
+  haar_quad(L, qx < d.fw ? lh : 0, qy < d.fh ? hl : 0,
+            qy < d.fh && qx < d.fw ? hh : 0, d, hqp, qy, qx, o);
+}
+
+// coarse_quad_out into the LL buffer at A + out (row stride S)
+__device__ __forceinline__ void coarse_quad(int* A, int in, int out, int S,
+                                            const Quad& d, int hqp, int qy,
+                                            int qx) {
+  int o[4];
+  coarse_quad_out(A, in, S, d, hqp, qy, qx, o);
+  int* r = A + out + 2 * qy * S + 2 * qx;
+  r[0] = o[0];
+  if (2 * qx + 1 < d.ws) r[1] = o[1];
+  if (2 * qy + 1 < d.hs) {
+    r[S] = o[2];
+    if (2 * qx + 1 < d.ws) r[S + 1] = o[3];
+  }
+}
+
+// The coarse stage: one block per plane runs levels top..lo (lo >= 3) on
+// the corner of a that they read, staged into shared memory A (row
+// stride S, level lo's width) and only read there; each level's output,
+// the LL entering the next, goes to one of two buffers X, Y (ch_lo rows
+// of stride S each) in turns, level lo's to dst (+ z * dbatch, row
+// stride its width). Levels of at most 64 quads run on one warp, the
+// others on the block, a thread every 1024th quad.
+__global__ void __launch_bounds__(kCoarseThreads, 1)
+inv_coarse_kernel(Inv P, int top, int lo, int* __restrict__ dst,
+                  int64_t dbatch) {
+  extern __shared__ int A[];
+  // launched chained to the kernel that wrote a: its launch overlaps that
+  // kernel's end; the next launches may start once a is complete
+  dep_wait();
+  dep_launch();
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  constexpr int kWarps = kCoarseThreads / 32;
+  const int* a = P.a + b * P.abatch;
+  const Quad dl = quad_dims(P.W, P.H, lo);
+  const int S = dl.ws;
+  // the two LL buffers, as offsets into A so that every access is a
+  // shared-memory one
+  const int buf0 = dl.hs * S, buf1 = (dl.hs + dl.ch) * S;
+  // every copy in flight at once: a warp a row, a lane 16 bytes (or 4)
+  if (S % 4 == 0 && P.as % 4 == 0 && (uintptr_t)a % 16 == 0) {
+    for (int r = warp; r < dl.hs; r += kWarps)
+      for (int c = 4 * lane; c < S; c += 128)
+        copy_async16(A + r * S + c, a + (int64_t)r * P.as + c);
+  } else {
+    for (int r = warp; r < dl.hs; r += kWarps)
+      for (int c = lane; c < S; c += 32)
+        copy_async(A + r * S + c, a + (int64_t)r * P.as + c);
+  }
+  // each level's geometry and quad-row reciprocal, computed while the
+  // corner is in flight, so that no level waits on them
+  __shared__ Quad s_d[kMaxLevels + 1];
+  __shared__ unsigned s_m[kMaxLevels + 1];
+  if (tid >= lo && tid <= top) {
+    s_d[tid] = quad_dims(P.W, P.H, tid);
+    s_m[tid] = quad_rcp(s_d[tid].cw);
+  }
+  copy_wait();
+  __syncthreads();
+  const int hqp4 = level_hqp(P, b, 4);  // every level above 3
+  int in = 0, k = 0, i = top;
+  for (; i > lo; --i, k ^= 1) {  // the top levels: warp 0
+    const Quad d = s_d[i];
+    const int nq = d.ch * d.cw;
+    if (nq > 64) break;
+    if (warp == 0) {
+      const unsigned m = s_m[i];
+      for (int p = lane; p < nq; p += 32) {
+        const int qy = quad_row(p, d.cw, m);
+        coarse_quad(A, in, k ? buf1 : buf0, S, d, hqp4, qy, p - qy * d.cw);
+      }
+      __syncwarp();
+    }
+    in = k ? buf1 : buf0;
+  }
+  __syncthreads();
+  for (; i >= lo; --i, k ^= 1) {
+    const Quad d = s_d[i];
+    const int nq = d.ch * d.cw;
+    const unsigned m = s_m[i];
+    const int hqp = i > 3 ? hqp4 : level_hqp(P, b, i);
+    for (int p = tid; p < nq; p += kCoarseThreads) {
+      const int qy = quad_row(p, d.cw, m), qx = p - qy * d.cw;
+      if (i > lo) {
+        coarse_quad(A, in, k ? buf1 : buf0, S, d, hqp, qy, qx);
+      } else {
+        int o[4];
+        coarse_quad_out(A, in, S, d, hqp, qy, qx, o);
+        int* out = dst + b * dbatch + 2 * qy * S + 2 * qx;
+        out[0] = o[0];
+        if (2 * qx + 1 < d.ws) out[1] = o[1];
+        if (2 * qy + 1 < d.hs) {
+          out[S] = o[2];
+          if (2 * qx + 1 < d.ws) out[S + 1] = o[3];
+        }
+      }
+    }
+    if (i > lo) __syncthreads();
+    in = k ? buf1 : buf0;
+  }
 }
 
 // Where level 1 writes: mode 0 int32 (H, W) at out (row stride ostride,
@@ -281,38 +441,298 @@ struct Epi {
   int64_t pstride, pbatch;
 };
 
-__global__ void __launch_bounds__(kThreads)
-inv_last_kernel(Inv P, const int* __restrict__ ll, int64_t lls,
-                int64_t lbatch, Epi E) {
-  const int X = blockIdx.x * 32 + threadIdx.x;
-  const int Y = blockIdx.y * 8 + threadIdx.y;
-  const int b = blockIdx.z;
-  const int rows = E.mode ? E.h + 2 * E.ext : P.H;
-  const int cols = E.mode ? E.w + 2 * E.ext : P.W;
-  if (X >= cols || Y >= rows) return;
-  // an image pixel replicates the plane's nearest edge pixel
-  const int y = E.mode ? clampi(Y - E.ext, 0, E.h - 1) : Y;
-  const int x = E.mode ? clampi(X - E.ext, 0, E.w - 1) : X;
+// The first part of a tile kernel of level i, and of level u = i + 1
+// where has_up: the LL entering level i over a tile of kTQX x kLQY
+// level-i quads from (qy0, qx0), with its one-value halo, into T1
+// (scaled where level i scales). With has_up: level u's output, computed
+// from the LL entering level u at ll (row stride lls; staged into T2
+// with its halo, scaled), and past it a (level i's first band row and
+// column); else staged from ll (the LL entering level i) and a. The
+// loads that do not depend on the previous kernel come first, `pre` (the
+// caller's own) among them; then dep_wait(). Ends with a block barrier.
+template <class Pre>
+__device__ __forceinline__ void tile_upper(const Inv& P, int b, int i,
+                                           int has_up, const int* ll,
+                                           int64_t lls, int* T1, int* T2,
+                                           int qy0, int qx0, int tid,
+                                           Pre pre) {
   const int* a = P.a + b * P.abatch;
-  const int* l = ll + b * lbatch;
-  int v;
+  auto B = [&](int r, int c) { return __ldg(a + (int64_t)r * P.as + c); };
+  const Quad d1 = quad_dims(P.W, P.H, i), d2 = quad_dims(P.W, P.H, i + 1);
+  const bool scale = i > 1;
+  const int r2 = qy0 / 2 - 1, c2 = qx0 / 2 - 1;  // the tile's level-u quads
+  int q2y[kQ2N], q2x[kQ2N], lh[kQ2N], hl[kQ2N], hh[kQ2N];
+  bool in2[kQ2N];
+#pragma unroll
+  for (int k = 0; k < kQ2N; ++k) {
+    const int t = tid + k * kThreads, ty = t / kQ2W;
+    q2y[k] = r2 + ty;
+    q2x[k] = c2 + (t - ty * kQ2W);
+    in2[k] = has_up && t < kQ2H * kQ2W && q2y[k] >= 0 && q2x[k] >= 0 &&
+             q2y[k] < d2.ch && q2x[k] < d2.cw;
+    lh[k] = hl[k] = hh[k] = 0;
+    if (in2[k]) quad_bands(B, d2, q2y[k], q2x[k], lh[k], hl[k], hh[k]);
+  }
+  const int hqp2 = level_hqp(P, b, i + 1);
+  pre();
+  // T1 off level u's output, on tiles at the level's edges only
+  if (has_up && (qy0 == 0 || qx0 == 0 || qy0 + kLQY >= d1.ch ||
+                 qx0 + kTQX >= d1.cw)) {
+    for (int p = tid; p < kH1H * kHW; p += kThreads) {
+      const int rr = p / kHW, r = qy0 - 1 + rr, c = qx0 - 1 + (p - rr * kHW);
+      if (r >= 0 && c >= 0 && r < d1.ch && c < d1.cw) continue;
+      const int v = (r >= 0 && c >= 0 && r < P.H && c < P.W)
+                        ? a[(int64_t)r * P.as + c] : 0;
+      T1[p] = scale ? sc(v) : v;
+    }
+  }
+  dep_wait();  // the level above has written ll
+  if (!has_up)
+    stage_ll(T1, kH1H, kHW, qy0 - 1, qx0 - 1, ll, lls, a, P, d1, scale, tid);
+  if (has_up) {
+    stage_ll(T2, kL2H, kL2W, r2 - 1, c2 - 1, ll, lls, a, P, d2, true, tid);
+    __syncthreads();
+    auto L2 = [&](int r, int c) {
+      return T2[(r - r2 + 1) * kL2W + (c - c2 + 1)];
+    };
+#pragma unroll
+    for (int k = 0; k < kQ2N; ++k) {
+      if (!in2[k]) continue;
+      int o[4];
+      haar_quad(L2, lh[k], hl[k], hh[k], d2, hqp2, q2y[k], q2x[k], o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int y = 2 * q2y[k] + (j >> 1), x = 2 * q2x[k] + (j & 1);
+        const int ty1 = y - qy0 + 1, tx1 = x - qx0 + 1;
+        if (y < d2.hs && x < d2.ws && ty1 >= 0 && ty1 < kH1H && tx1 >= 0 &&
+            tx1 < kHW)
+          T1[ty1 * kHW + tx1] = scale ? sc(o[j]) : o[j];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Level i >= 3, and level i + 1 where has_up, over the batch, a tile of
+// kTQX x kLQY level-i quads a block: the LL entering the first of them at
+// ll (row stride lls, + z * lbatch), level i's output into dst (+ z *
+// dbatch, row stride its width).
+__global__ void __launch_bounds__(kThreads)
+inv_tile_kernel(Inv P, int i, int has_up, const int* __restrict__ ll,
+                int64_t lls, int64_t lbatch, int* __restrict__ dst,
+                int64_t dbatch) {
+  __shared__ int T1[kH1H * kHW];
+  __shared__ int T2[kL2H * kL2W];
+  dep_launch();
+  const Quad d = quad_dims(P.W, P.H, i);
+  const int b = blockIdx.z, tid = threadIdx.y * kTQX + threadIdx.x;
+  const int qx0 = blockIdx.x * kTQX, qy0 = blockIdx.y * kLQY;
+  const int qx = qx0 + threadIdx.x;
+  const int* a = P.a + b * P.abatch;
+  auto B = [&](int r, int c) { return __ldg(a + (int64_t)r * P.as + c); };
+  int LH[kLR], HL[kLR], HH[kLR];
+  auto pre = [&] {
+#pragma unroll
+    for (int r = 0; r < kLR; ++r) {
+      const int qy = qy0 + threadIdx.y + r * kTQY;
+      LH[r] = HL[r] = HH[r] = 0;
+      if (qy < d.ch && qx < d.cw) quad_bands(B, d, qy, qx, LH[r], HL[r], HH[r]);
+    }
+  };
+  tile_upper(P, b, i, has_up, ll + b * lbatch, lls, T1, T2, qy0, qx0, tid,
+             pre);
+  auto L1 = [&](int r, int c) {
+    return T1[(r - qy0 + 1) * kHW + (c - qx0 + 1)];
+  };
+  const int hqp = level_hqp(P, b, i);
+  int* out = dst + b * dbatch;
+#pragma unroll
+  for (int r = 0; r < kLR; ++r) {
+    const int qy = qy0 + threadIdx.y + r * kTQY;
+    if (qy >= d.ch || qx >= d.cw) continue;
+    int o[4];
+    haar_quad(L1, LH[r], HL[r], HH[r], d, hqp, qy, qx, o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int y = 2 * qy + (j >> 1), x = 2 * qx + (j & 1);
+      if (y < d.hs && x < d.ws) out[(int64_t)y * d.ws + x] = o[j];
+    }
+  }
+}
+
+// Levels 2 (where the plane has it: has2) and 1 and the epilogue over the
+// batch, a tile of kTQX x kLQY level-1 quads a block. ll: the LL entering
+// level 2 (row stride lls, + z * lbatch). w4: the image takes aligned
+// 32-bit stores (modes 1 and 2).
+__global__ void __launch_bounds__(kThreads)
+inv_last_kernel(Inv P, int has2, const int* __restrict__ ll, int64_t lls,
+                int64_t lbatch, Epi E, int w4) {
+  __shared__ int T1[kH1H * kHW];     // the LL entering level 1, its halo
+  __shared__ int T2[kL2H * kL2W];    // the LL entering level 2 behind it
+  __shared__ int V[2][2 * kLQY][kHW];  // I planes: the B4T's column pass
+  // the tile's pixels, read back as 32-bit words
+  __shared__ __align__(16) uint8_t U[2 * kLQY][2 * kTQX];
+  dep_launch();
+  const Quad d1 = quad_dims(P.W, P.H, 1);
+  const int b = blockIdx.z, tid = threadIdx.y * kTQX + threadIdx.x;
+  const int qx0 = blockIdx.x * kTQX, qy0 = blockIdx.y * kLQY;
+  const int qx = qx0 + threadIdx.x;
+  const int* a = P.a + b * P.abatch;
+  auto B = [&](int r, int c) { return __ldg(a + (int64_t)r * P.as + c); };
+  // this thread's level-1 bands and prediction
+  int LH[kLR], HL[kLR], HH[kLR];
+  uint8_t pr[kLR][4];
+  auto pre = [&] {
+#pragma unroll
+    for (int r = 0; r < kLR; ++r) {
+      const int qy = qy0 + threadIdx.y + r * kTQY;
+      LH[r] = HL[r] = HH[r] = 0;
+      if (P.is_p && qy < d1.ch && qx < d1.cw)
+        quad_bands(B, d1, qy, qx, LH[r], HL[r], HH[r]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int y = 2 * qy + (j >> 1), x = 2 * qx + (j & 1);
+        pr[r][j] = E.mode == 2 && y < E.h && x < E.w
+                       ? E.pred[b * E.pbatch + (int64_t)y * E.pstride + x]
+                       : 0;
+      }
+    }
+  };
+  tile_upper(P, b, 1, has2, ll + b * lbatch, lls, T1, T2, qy0, qx0, tid, pre);
+  auto L1 = [&](int r, int c) {
+    return T1[(r - qy0 + 1) * kHW + (c - qx0 + 1)];
+  };
+  int v[kLR][4];
   if (P.is_p) {
-    const Quad d = quad_dims(P.W, P.H, 1);
-    v = haar_inv_px(l, lls, a, P.as, d, false, level_hqp(P, b, 1), y, x);
+    const int hqp = level_hqp(P, b, 1);
+#pragma unroll
+    for (int r = 0; r < kLR; ++r) {
+      const int qy = qy0 + threadIdx.y + r * kTQY;
+      if (qy < d1.ch && qx < d1.cw)
+        haar_quad(L1, LH[r], HL[r], HH[r], d1, hqp, qy, qx, v[r]);
+    }
   } else {
-    v = b4t_inv_px(l, lls, a, P.as, P.H, P.W, y, x);
+    // the inverse B4T of the (H, W) in-place state (inv_b4t_2d,
+    // sbt.c:195-265): the reconstructed LL corner and the raw bands. First
+    // each column's inverse at the tile's rows, for columns qx0 - 1..qx0 +
+    // kTQX of the L half (V[0]) and of the H half (V[1]), then the rows.
+    const int m = P.H / 2, mw = P.W / 2;
+    auto F = [&](int r, int c) {
+      return r < m && c < mw ? L1(r, c) : B(r, c);
+    };
+    for (int p = tid; p < 2 * 2 * kLQY * kHW; p += kThreads) {
+      const int g = p / (2 * kLQY * kHW), e = p - g * (2 * kLQY * kHW);
+      const int yy = e / kHW, cc = e - yy * kHW;
+      const int y = 2 * qy0 + yy, c0 = qx0 - 1 + cc;
+      if (y >= P.H || c0 < 0 || c0 >= mw) continue;
+      const int c = g ? mw + c0 : c0, k = y >> 1;
+      int t;
+      if ((y & 1) == 0) {
+        const int kp = max(k - 1, 0);
+        t = round8(F(kp, c) + 3 * F(k, c) + F(m + kp, c) - 3 * F(m + k, c));
+      } else {
+        const int kn = min(k + 1, m - 1);
+        t = round8(3 * F(k, c) + F(kn, c) + 3 * F(m + k, c) - F(m + kn, c));
+      }
+      V[g][yy][cc] = t;
+    }
+    __syncthreads();
+    const int jp = max(qx - 1, 0) - qx0 + 1, j = qx - qx0 + 1;
+    const int jn = min(qx + 1, mw - 1) - qx0 + 1;
+#pragma unroll
+    for (int r = 0; r < kLR; ++r) {
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        const int* V0 = V[0][2 * (threadIdx.y + r * kTQY) + dy];
+        const int* V1 = V[1][2 * (threadIdx.y + r * kTQY) + dy];
+        v[r][2 * dy] = round8(V0[jp] + 3 * V0[j] + V1[jp] - 3 * V1[j]);
+        v[r][2 * dy + 1] = round8(3 * V0[j] + V0[jn] + 3 * V1[j] - V1[jn]);
+      }
+    }
   }
   if (E.mode == 0) {
-    static_cast<int*>(E.out)[b * E.obatch + (int64_t)y * E.ostride + x] = v;
+    int* out = static_cast<int*>(E.out) + b * E.obatch;
+#pragma unroll
+    for (int r = 0; r < kLR; ++r) {
+      const int qy = qy0 + threadIdx.y + r * kTQY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int y = 2 * qy + (j >> 1), x = 2 * qx + (j & 1);
+        if (y < P.H && x < P.W) out[(int64_t)y * E.ostride + x] = v[r][j];
+      }
+    }
     return;
   }
-  int r = clampi(v + 128, 0, 255);  // sbc2int
-  if (E.mode == 2)                  // addf
-    r = clampi((int)E.pred[b * E.pbatch + (int64_t)y * E.pstride + x] + r -
-                   128, 0, 255);
-  static_cast<uint8_t*>(E.out)[b * E.obatch +
-                               (int64_t)(Y - E.ext) * E.ostride +
-                               (X - E.ext)] = (uint8_t)r;
+  const int Y0 = 2 * qy0, X0 = 2 * qx0;
+  uint8_t* out = static_cast<uint8_t*>(E.out) + b * E.obatch;
+  // a tile off the plane's edges: each thread stores its quads' pixel
+  // pairs straight away
+  const bool inner = w4 && Y0 > 0 && X0 > 0 && Y0 + 2 * kLQY < E.h &&
+                     X0 + 2 * kTQX < E.w;
+  uint8_t px[kLR][4];
+#pragma unroll
+  for (int r = 0; r < kLR; ++r) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int t = clampi(v[r][j] + 128, 0, 255);                 // sbc2int
+      if (E.mode == 2) t = clampi(pr[r][j] + t - 128, 0, 255);  // addf
+      px[r][j] = (uint8_t)t;
+    }
+  }
+  if (inner) {
+#pragma unroll
+    for (int r = 0; r < kLR; ++r) {
+      const int y = 2 * (qy0 + threadIdx.y + r * kTQY);
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy)
+        *reinterpret_cast<uint16_t*>(out + (int64_t)(y + dy) * E.ostride +
+                                     2 * qx) =
+            (uint16_t)(px[r][2 * dy] | px[r][2 * dy + 1] << 8);
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kLR; ++r) {
+    const int qy = qy0 + threadIdx.y + r * kTQY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int y = 2 * qy + (j >> 1), x = 2 * qx + (j & 1);
+      if (y < E.h && x < E.w)
+        U[2 * (threadIdx.y + r * kTQY) + (j >> 1)]
+         [2 * threadIdx.x + (j & 1)] = px[r][j];
+    }
+  }
+  __syncthreads();
+  // the tile's pixels and, where it holds the plane's edge, the border
+  // pixels that repeat them: each image pixel is written by one block
+  if (Y0 >= E.h || X0 >= E.w) return;
+  const int Y1 = min(Y0 + 2 * kLQY, E.h), X1 = min(X0 + 2 * kTQX, E.w);
+  const int ey0 = Y0 == 0 ? -E.ext : Y0, ey1 = Y1 == E.h ? E.h + E.ext : Y1;
+  const int ex0 = X0 == 0 ? -E.ext : X0, ex1 = X1 == E.w ? E.w + E.ext : X1;
+  auto src = [&](const uint8_t* u, int X) {
+    return u[clampi(X, 0, E.w - 1) - X0];
+  };
+  for (int Y = ey0 + (int)threadIdx.y; Y < ey1; Y += kTQY) {
+    const uint8_t* u = U[clampi(Y, 0, E.h - 1) - Y0];
+    uint8_t* o = out + (int64_t)Y * E.ostride;
+    if (w4) {  // ex0 is a multiple of 4: a word a lane, bytes at the end
+      for (int X = ex0 + 4 * (int)threadIdx.x; X < ex1; X += 4 * kTQX) {
+        if (X + 4 > ex1) {
+          for (int k = X; k < ex1; ++k) o[k] = src(u, k);
+        } else if (X >= 0 && X + 4 <= E.w) {
+          *reinterpret_cast<uint32_t*>(o + X) =
+              *reinterpret_cast<const uint32_t*>(u + (X - X0));
+        } else {
+          *reinterpret_cast<uint32_t*>(o + X) =
+              (uint32_t)src(u, X) | (uint32_t)src(u, X + 1) << 8 |
+              (uint32_t)src(u, X + 2) << 16 | (uint32_t)src(u, X + 3) << 24;
+        }
+      }
+    } else {
+      for (int X = ex0 + (int)threadIdx.x; X < ex1; X += kTQX)
+        o[X] = src(u, X);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -369,71 +789,109 @@ residual_in_kernel(const uint8_t* __restrict__ img, int64_t ibatch,
   out[R.out + b * n + p] = v;
 }
 
+// A launch of kern with smem bytes of dynamic shared memory on stream s;
+// with dep, chained to the stream's previous kernel by programmatic
+// dependent launch.
+template <class... K, class... Args>
+cudaError_t launch_k(void (*kern)(K...), dim3 grid, dim3 block, size_t smem,
+                     cudaStream_t s, bool dep, Args... args) {
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = at;
+  cfg.numAttrs = dep ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
 }  // namespace
 
 // The inverse pyramid of C planes (H, W) at a (+ z * abatch, row stride
-// as), levels top..1, the small stage running top..small_lo (none when
-// small_lo > top; small_lo >= 2), then one launch per level. s0, s1:
-// scratch of C * round_shift(H, 1) * round_shift(W, 1) ints each. q: int32
-// per plane (+ z * qstride) or null for qscalar. mode, out, ostride,
-// obatch, h, w, ext, pred, pstride, pbatch: the last level's output (see
-// Epi).
+// as), levels top..1: with top >= 3 the coarse stage runs top..lo (3 <=
+// lo <= top), then levels lo - 1..3 two a launch (the last alone where
+// their count is odd), then levels 2 and 1 in one launch. scratch, where
+// top >= 3: C * n3 ints, twice where lo > 3 (n3 = round_shift(H, 2) *
+// round_shift(W, 2), level 3's output a plane). q: int32 per plane (+ z
+// * qstride) or null for qscalar. mode, out, ostride, obatch, h, w, ext,
+// pred, pstride, pbatch: the last level's output (see Epi).
 extern "C" int dsv1_inv_sbt(const int* a, int64_t as, int64_t abatch, int H,
-                            int W, int C, int top, int small_lo,
-                            const int* q, int64_t qstride, int qscalar,
-                            int is_p, int luma, int* s0, int* s1, int mode,
-                            void* out, int64_t ostride, int64_t obatch, int h,
-                            int w, int ext, const uint8_t* pred,
-                            int64_t pstride, int64_t pbatch,
-                            cudaStream_t stream) {
+                            int W, int C, int top, int lo, const int* q,
+                            int64_t qstride, int qscalar, int is_p, int luma,
+                            int* scratch, int mode, void* out,
+                            int64_t ostride, int64_t obatch, int h, int w,
+                            int ext, const uint8_t* pred, int64_t pstride,
+                            int64_t pbatch, cudaStream_t stream) {
   if (C < 1 || C > 65535 || top < 1 || H < 2 || W < 2 || h > H || w > W ||
       (!is_p && (H % 2 || W % 2)) || mode < 0 || mode > 2 ||
       (mode == 2 && !pred))
     return (int)cudaErrorInvalidValue;
+  auto n_of = [&](int i) {
+    const Quad d = quad_dims(W, H, i);
+    return (int64_t)d.hs * d.ws;
+  };
+  // the coarse stage's shared memory: the corner and two LL buffers
+  const Quad dl = quad_dims(W, H, top >= 3 ? lo : 1);
+  const int64_t smem = (int64_t)(dl.hs + 2 * dl.ch) * dl.ws * sizeof(int);
+  // with the stage's static table of level geometry
+  const int64_t static_smem =
+      (int64_t)(kMaxLevels + 1) * (sizeof(Quad) + sizeof(unsigned));
+  if (top >= 3 && (lo < 3 || lo > top || top > kMaxLevels || !scratch ||
+                   smem + static_smem > kCoarseSmem))
+    return (int)cudaErrorInvalidValue;
   const Inv P{a, as, abatch, H, W, q, qstride, qscalar, is_p, luma};
-  const int64_t lvl_n =
-      (int64_t)((H + 1) / 2) * ((W + 1) / 2);  // largest LL region
-  const int* ll = a;  // the LL region entering the next level
+  const dim3 tile(kTQX, kTQY);
+  const int* ll = a;  // the LL region entering level 2
   int64_t lls = as, lbatch = abatch;
-  int* bufs[2] = {s0, s1};
-  int k = 0, i = top;
-  if (small_lo <= top && top >= 2) {
-    // the small stage's buffers hold its largest level's output
-    int bufn = 1;
-    for (int j = top; j > small_lo; --j) {
-      const int hs = (H + (1 << (j - 1)) - 1) >> (j - 1);
-      const int ws = (W + (1 << (j - 1)) - 1) >> (j - 1);
-      bufn = hs * ws > bufn ? hs * ws : bufn;
-    }
-    const size_t smem = 2 * (size_t)bufn * sizeof(int);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          inv_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
+  cudaError_t e;
+  if (top >= 3) {
+    // the launches write scratch and scratch + C * n3 in turns, each a
+    // level's output (plane stride n3, the largest, level 3's)
+    const int64_t n3 = n_of(3);
+    int* buf = scratch;
+    if (smem + static_smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(inv_coarse_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    inv_small_kernel<<<C, kSmallThreads, smem, stream>>>(P, top, small_lo,
-                                                         bufs[k], lvl_n, bufn);
-    ll = bufs[k];
-    lls = (W + (1 << (small_lo - 1)) - 1) >> (small_lo - 1);
-    lbatch = lvl_n;
-    k ^= 1;
-    i = small_lo - 1;
-  }
-  for (; i >= 2; --i) {
-    const int hs = (H + (1 << (i - 1)) - 1) >> (i - 1);
-    const int ws = (W + (1 << (i - 1)) - 1) >> (i - 1);
-    inv_level_kernel<<<dim3((ws + 31) / 32, (hs + 7) / 8, C), dim3(32, 8), 0,
-                       stream>>>(P, i, ll, lls, lbatch, bufs[k], lvl_n);
-    ll = bufs[k];
-    lls = ws;
-    lbatch = lvl_n;
-    k ^= 1;
+    e = launch_k(inv_coarse_kernel, dim3(C), dim3(kCoarseThreads), smem,
+                 stream, true, P, top, lo, buf, n3);
+    if (e != cudaSuccess) return (int)e;
+    // levels lo - 1..3: two a launch, the last one alone where their
+    // count is odd
+    for (int i = lo - 1; i >= 3;) {
+      int* next = buf == scratch ? scratch + C * n3 : scratch;
+      const int lower = i - 1 >= 3 ? i - 1 : i;
+      const Quad d = quad_dims(W, H, lower);
+      e = launch_k(inv_tile_kernel,
+                   dim3((d.cw + kTQX - 1) / kTQX, (d.ch + kLQY - 1) / kLQY,
+                        C),
+                   tile, 0, stream, true, P, lower, (int)(lower < i),
+                   (const int*)buf, (int64_t)quad_dims(W, H, i + 1).ws, n3,
+                   next, n3);
+      if (e != cudaSuccess) return (int)e;
+      buf = next;
+      i = lower - 1;
+    }
+    ll = buf;
+    lls = quad_dims(W, H, 3).ws;
+    lbatch = n3;
   }
   const Epi E{out, ostride, obatch, mode, h, w, ext, pred, pstride, pbatch};
-  const int rows = mode ? h + 2 * ext : H, cols = mode ? w + 2 * ext : W;
-  inv_last_kernel<<<dim3((cols + 31) / 32, (rows + 7) / 8, C), dim3(32, 8), 0,
-                    stream>>>(P, ll, lls, lbatch, E);
+  const Quad d1 = quad_dims(W, H, 1);
+  // aligned 32-bit stores: the words from column -ext start at multiples
+  // of 4 of the image (pixel (0, 0) and the rows at multiples of 4)
+  const int w4 = mode > 0 && ext % 4 == 0 && (uintptr_t)out % 4 == 0 &&
+                 ostride % 4 == 0 && obatch % 4 == 0;
+  e = launch_k(inv_last_kernel,
+               dim3((d1.cw + kTQX - 1) / kTQX, (d1.ch + kLQY - 1) / kLQY, C),
+               tile, 0, stream, top >= 3, P, (int)(top >= 2), ll, lls, lbatch,
+               E, w4);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -106,8 +106,8 @@ def lib():
                                         I, P, I64, I, I, I, P, I64, I, P,
                                         I64, P]
         L.dsv1_inv_sbt.argtypes = [P, I64, I64, I, I, I, I, I, P, I64, I, I,
-                                   I, P, P, I, P, I64, I64, I, I, I, P, I64,
-                                   I64, P]
+                                   I, P, I, P, I64, I64, I, I, I, P, I64, I64,
+                                   P]
         L.dsv1_b4t_fwd.argtypes = [P, I64, I, I, I, P, I64, P, I64, P]
         L.dsv1_residual_in.argtypes = [P, I64, P, I64, P, P, I, I, P]
         for fn in (L.dsv1_mc_frame, L.dsv1_hme_refine, L.dsv1_hme_coarse,

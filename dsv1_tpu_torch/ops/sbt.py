@@ -40,9 +40,12 @@ from .cint import cdiv, lb2, round2, round4, round8, trunc_div
 # the Haar kernel's tile side and the levels a tile runs (64 -> 1): they
 # size its scratch and count its launches, so they match csrc/sbt.cu
 HAAR_TILE, HAAR_TILE_LEVELS = 64, 6
-# the inverse's small stage (csrc/recon.cu) runs, in one block per plane,
-# the top levels whose output has at most this many values (`inv_plan`)
-INV_SMALL_MAX = 8192
+# the inverse's coarse stage (csrc/recon.cu) runs, in one block per plane,
+# the top levels as deep as the corner of the coefficient array they read
+# fits in these bytes (with its two LL buffers the stage holds about
+# twice that in shared memory, which csrc/recon.cu checks against the
+# block's 232,448 bytes) (`inv_plan`)
+INV_COARSE_BYTES = 49152
 
 
 def nlevels(w: int, h: int) -> int:
@@ -362,20 +365,36 @@ def coefs_to_plane(coefs):
     return (coefs + 128).clamp(0, 255).to(torch.uint8)
 
 
+def _level_size(W: int, H: int, i: int) -> int:
+    """Values of level i's output."""
+    return round_shift(H, i - 1) * round_shift(W, i - 1)
+
+
 def inv_plan(W: int, H: int):
-    """(top, small_lo, launches) of the inverse kernel on a (W, H) plane:
-    the small stage runs levels top..small_lo (small_lo >= 2) in one
-    block per plane, while each level's output has at most INV_SMALL_MAX
-    values; then one launch per level small_lo - 1..1. A plane of one
-    level runs level 1 alone (small_lo past top)."""
+    """(top, lo, launches) of the inverse kernels on a (W, H) plane. With
+    3 levels or more: the coarse stage runs levels top..lo in one block
+    per plane (lo >= 3, as deep as `INV_COARSE_BYTES` allows), then
+    levels lo - 1..3 two a launch (the last alone where their count is
+    odd), then levels 2 and 1 in one launch. A plane of one or two
+    levels: the last launch alone (lo past top)."""
     top = nlevels(W, H)
-    if top < 2:
+    if top < 3:
         return top, top + 1, 1
     lo = top
-    while lo > 2 and round_shift(H, lo - 2) * round_shift(W, lo - 2) \
-            <= INV_SMALL_MAX:
+    while lo > 3 and 4 * _level_size(W, H, lo - 1) <= INV_COARSE_BYTES:
         lo -= 1
-    return top, lo, lo
+    return top, lo, 2 + (lo - 2) // 2
+
+
+def inv_scratch(W: int, H: int) -> int:
+    """int32 values a plane of the inverse's device-memory scratch: one
+    buffer of level 3's output size where the coarse stage ends at level
+    3, two that the launches write in turns where it ends above, none
+    below 3 levels."""
+    top, lo, _n = inv_plan(W, H)
+    if top < 3:
+        return 0
+    return _level_size(W, H, 3) * (2 if lo > 3 else 1)
 
 
 def _inv_launch(coefs, q, is_p: bool, is_luma: bool, mode: int, out,
@@ -405,12 +424,13 @@ def _inv_launch(coefs, q, is_p: bool, is_luma: bool, mode: int, out,
                              "coefficients' device")
         pp, ps, pb = (pred.data_ptr(), pred.stride(-2),
                       pred.stride(0) if pred.dim() == 3 else 0)
-    nbuf = C * round_shift(H, 1) * round_shift(W, 1) if top > 1 else 0
-    s0 = torch.empty(nbuf, dtype=torch.int32, device=coefs.device)
-    s1 = torch.empty(nbuf, dtype=torch.int32, device=coefs.device)
+    nbuf = C * inv_scratch(W, H)
+    scratch = torch.empty(nbuf, dtype=torch.int32, device=coefs.device) \
+        if nbuf else None
     launch("dsv1_inv_sbt", coefs, coefs.data_ptr(), W, ab, H, W, C, top, lo,
-           qp, qs, qv, int(bool(is_p)), int(bool(is_luma)), s0.data_ptr(),
-           s1.data_ptr(), mode, out, ostride, obatch, h, w, ext, pp, ps, pb)
+           qp, qs, qv, int(bool(is_p)), int(bool(is_luma)),
+           scratch.data_ptr() if nbuf else None, mode, out, ostride, obatch,
+           h, w, ext, pp, ps, pb)
     LAUNCHES["inv_sbt"] += n
 
 

@@ -14,7 +14,11 @@ versions on the CPU.
   package's encode_plane_core and dequant_plane_grid, over geometries
   whose bands alias.
 - The intra level-1 B4T (`sbt.b4t_fwd`) and its LL copy, the inverse's
-  launch plan (`sbt.inv_plan`), and the CPU route's launch counts (none).
+  launch plan (`sbt.inv_plan`: every level once, the coarse stage's
+  shared memory within a block's), the coarse stage's quad rows by a
+  multiply-high (exact), the quantizer kernel's
+  multiply-high reciprocals (a numpy mirror, exact on every step of the
+  quant law), and the CPU route's launch counts (none).
 
 Integer-exact: compared with assert_array_equal."""
 
@@ -302,24 +306,152 @@ def test_b4t_fwd_matches_jax(w, h):
 
 
 def test_inv_plan():
-    """The inverse's split: the small stage ends where the next level's
-    output passes INV_SMALL_MAX (never below level 2), then a launch a
-    level; launches small_lo (1 for a one-level plane)."""
+    """The inverse's split: the coarse stage runs top..lo in one block per
+    plane, as deep as its staged corner fits `INV_COARSE_BYTES` (never
+    below level 3), then levels lo - 1..3 two a launch, then levels 2 and
+    1 in one launch (1 launch for a plane of one or two levels)."""
     for W, H in ((1920, 1080), (960, 540), (3840, 2160), (352, 288),
-                 (48, 40), (100, 84), (2, 2), (1, 300)):
+                 (48, 40), (100, 84), (2, 2), (4, 4), (1, 300)):
         top, lo, n = tsbt.inv_plan(W, H)
         assert top == tsbt.nlevels(W, H)
-        if top < 2:
+        if top < 3:
             assert (lo, n) == (top + 1, 1)
             continue
-        assert 2 <= lo <= top and n == lo
+        assert 3 <= lo <= top and n == 2 + (lo - 3 + 1) // 2
 
         def out(i):
             return tsbt.round_shift(H, i - 1) * tsbt.round_shift(W, i - 1)
-        assert out(lo) <= tsbt.INV_SMALL_MAX
-        assert lo == 2 or out(lo - 1) > tsbt.INV_SMALL_MAX
-    assert tsbt.inv_plan(1920, 1080) == (11, 5, 5)
-    assert tsbt.inv_plan(3840, 2160) == (12, 6, 6)
+        assert lo == top or 4 * out(lo) <= tsbt.INV_COARSE_BYTES
+        assert lo == 3 or 4 * out(lo - 1) > tsbt.INV_COARSE_BYTES
+    assert tsbt.inv_plan(1920, 1080) == (11, 5, 3)
+    assert tsbt.inv_plan(3840, 2160) == (12, 6, 4)
+    assert tsbt.inv_plan(352, 288) == (9, 3, 2)
+    # launches a frame, 4:2:0: 1080p 3 + 3 + 3 (13 before), 4K 4 + 3 + 3
+    # (16), CIF 2 + 2 + 2 (7)
+    for (w, h), n in (((1920, 1080), 9), ((3840, 2160), 10),
+                      ((352, 288), 6)):
+        assert sum(tsbt.inv_plan(pw, ph)[2] for pw, ph in
+                   ((w, h), (w // 2, h // 2), (w // 2, h // 2))) == n
+
+
+# the planes of the smoke run's recon cases: CIF, 1080p and 4K luma and
+# 4:2:0 chroma, the odd geometries, 4:2:2 and 4:1:1 chroma at 1080p, the
+# largest coarse stage (1776x1760 and its chroma)
+STAGE_PLANES = [(352, 288), (176, 144), (1920, 1080), (960, 540),
+                (3840, 2160), (100, 84), (50, 42), (98, 82), (960, 1080),
+                (480, 1080), (102, 86), (52, 44), (1918, 1078), (960, 540),
+                (1776, 1760), (888, 880)]
+
+
+@pytest.mark.parametrize("W,H", sorted(set(STAGE_PLANES)))
+def test_inv_stages_cover_levels_and_fit(W, H):
+    """The launches of `inv_plan` run every level exactly once, top to 1:
+    the coarse stage top..lo, then pairs down to 3 (the last alone where
+    their count is odd), then levels 2 and 1; the coarse stage's dynamic
+    shared memory (its corner, level lo's input, and two buffers of level
+    lo's LL) fits a block (232,448 bytes on sm_90; the tile kernels'
+    static shared memory is nvcc's to check); the scratch holds level 3's
+    output once, twice where launches between the coarse stage and the
+    last write it in turns."""
+    top, lo, n = tsbt.inv_plan(W, H)
+    if top < 3:
+        stages = [tuple(range(top, 0, -1))]
+    else:
+        stages = [tuple(range(top, lo - 1, -1))]
+        i = lo - 1
+        while i >= 3:
+            stages.append((i, i - 1) if i - 1 >= 3 else (i,))
+            i -= len(stages[-1])
+        stages.append((2, 1))
+        hs, ws = tsbt.round_shift(H, lo - 1), tsbt.round_shift(W, lo - 1)
+        assert 4 * (hs + 2 * ((hs + 1) // 2)) * ws <= 232448
+    assert [i for lv in stages for i in lv] == list(range(top, 0, -1))
+    assert len(stages) == n
+    n3 = tsbt.round_shift(H, 2) * tsbt.round_shift(W, 2)
+    assert tsbt.inv_scratch(W, H) == (0 if top < 3 else
+                                      n3 * (2 if lo > 3 else 1))
+
+
+def test_coarse_quad_row_exact():
+    """The coarse stage's quad rows without a division (csrc/recon.cu
+    `quad_rcp`, `quad_row`: umulhi(p, floor((2^32 - 1) / cw) + 1), p
+    itself for cw = 1) equal p // cw for every level width a coarse stage
+    can hold (its levels fit 232,448 bytes: at most 58,112 values) and
+    every quad index of such a level."""
+    rng = np.random.default_rng(3)
+    for cw in list(range(1, 1025)) + [2047, 4096, 29056, 58112]:
+        m = np.uint64((0xFFFFFFFF // cw + 1) & 0xFFFFFFFF)
+        n = 58112 // 4 if cw <= 58112 // 4 else cw
+        p = np.unique(np.concatenate([
+            np.arange(min(n, 3 * cw + 2)), [n - 1, cw - 1, cw, cw + 1],
+            rng.integers(0, n, 200)])).astype(np.uint64)
+        p = p[p < n]
+        got = p if cw == 1 else (p * m) >> np.uint64(32)
+        np.testing.assert_array_equal(got, p // np.uint64(cw))
+
+
+# --- the quantizer's reciprocals (csrc/hzcc.cu `make_div`, `div_by`) ----
+
+def _make_div(d: int):
+    """The kernel's (m, s) for a divisor d >= 2: l = ceil(log2 d), m =
+    floor(2^(31 + l) / d) + 1, s = l - 1."""
+    ln = (d - 1).bit_length()
+    return (1 << (31 + ln)) // d + 1, ln - 1
+
+
+def _div_by(n, m: int, s: int):
+    """umulhi(n, m) >> s of uint32 n (numpy)."""
+    return ((n.astype(np.uint64) * np.uint64(m)) >> np.uint64(32)) \
+        >> np.uint64(s)
+
+
+def _law_steps(is_p: bool, plane: int):
+    """Every lower-frequency step the quant law gives one kind of plane:
+    qualities 0..2047 through quant_of_quality, qp_ll and tmq4pos of qp0
+    and qp1 at stability flags 0..3."""
+    qs = dt.constants.quant_of_quality(np.arange(dt.MAX_QUALITY + 1))
+    st = torch.arange(4, dtype=torch.int32)
+    steps = set()
+    for q in np.unique(qs):
+        qp_ll, qp0, qp1, _q2, _q2h = thz.frame_quants(int(q), is_p, plane)
+        steps.add(int(qp_ll))
+        for qp in (qp0, qp1):
+            steps.update(int(t) for t in thz.tmq4pos(qp, st))
+    return sorted(steps)
+
+
+@pytest.mark.parametrize("is_p", [False, True])
+@pytest.mark.parametrize("plane", [0, 1])
+def test_quant_reciprocal_exact(is_p, plane):
+    """The kernel's multiply-high reciprocal of every divisor 2 q the
+    quantizer meets gives C's floor division on 0, d - 1, d, k d - 1 and
+    k d up to the range and the range's maximum 2^31 - 1 (the quantizer
+    divides 2 |v| + 1 < 2^31)."""
+    steps = _law_steps(is_p, plane)
+    assert min(steps) >= dt.constants.MINQUANT
+    top = 2**31 - 1
+    for q in steps:
+        d = 2 * q
+        m, s = _make_div(d)
+        assert 2**31 <= m < 2**32 and s >= 0
+        ks = np.unique(np.geomspace(1, top // d, 48).astype(np.int64))
+        n = np.concatenate([[0, 1, d - 1, d, d + 1, top, top - 1],
+                            ks * d - 1, ks * d, ks * d + 1,
+                            [(top // d) * d, (top // d) * d - 1]])
+        n = n[(n >= 0) & (n <= top)].astype(np.int64)
+        np.testing.assert_array_equal(_div_by(n, m, s).astype(np.int64),
+                                      n // d)
+
+
+def test_quant_dividends_in_range():
+    """fwd_sbt of the most extreme u8 residuals at the largest geometry
+    the smoke run codes (3840x2160: 12 levels) keeps 2 |v| + 1 below
+    2^31, the reciprocals' range."""
+    for v in (-128, 127):
+        for is_p in (False, True):
+            c = tsbt.fwd_sbt(torch.full((2160, 3840), v, dtype=torch.int32),
+                             is_p)
+            assert 2 * int(c.abs().max()) + 1 < 2**31
 
 
 def test_cpu_route_launches_nothing():

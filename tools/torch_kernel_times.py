@@ -25,8 +25,8 @@ of the first GOP, as chip_smoke.py picks it):
   (`refine_level`) and `refine_wide` at efforts 1, 2 and 3, on the GOP
   and on its first pair alone (B = 1).
 
-- `recon`: the recon chain's frame step on the 1080p and the 3840x2160
-  clip's second frame: the encode core (`make_encode_core_traced`'s
+- `recon`: the recon chain's frame step on the 1080p, the 3840x2160 and
+  the CIF clip's second frame: the encode core (`make_encode_core_traced`'s
   function) on it as a P frame (the HME field of the first GOP, the
   first frame as its reference) and as an I frame, and its units: the
   prologue (`bmc.residual_in`, where the port has it), the intra B4T
@@ -38,10 +38,14 @@ of the first GOP, as chip_smoke.py picks it):
 
 For each: the CUDA-event mean per call over a loop of calls (the
 wrappers' host work included), the device time per call summed from
-torch.profiler's kernel events, of it the time of the case's own
+torch.profiler's kernel events and as the union of their intervals
+(the device time where kernels overlap), of the sum the time of the
+case's own
 hand-written kernels (`haar_`, `mc_` or `hme_` in the name; for `recon`
 every hand-written kernel's), and the kernels launched and
-host-to-device copies made per call.
+host-to-device copies made per call; for `encode_plane_core` and the
+luma recon also the device time per call with the host out of the way
+(`graph_ms`: 20 calls in a CUDA graph, replayed 10 times).
 `--e2e N` also times N encodes (`encode_stream_gops`, CRF) and N
 decodes of the 1080p golden clip (or of `--e2e-clip`, an
 encode_stream_gops golden clip with its own arguments, such as
@@ -60,6 +64,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+# this tree's chip_smoke (stdlib only at import), whatever --root times
+sys.path.insert(0, str(ROOT))
+from chip_smoke import union_us  # noqa: E402
 
 
 def event_ms(fn, reps: int) -> float:
@@ -85,8 +92,13 @@ OWN_KERNELS = ("haar_", "mc_", "hme_", "hzcc_", "inv_", "b4t_",
 def device_ms(fn, reps: int, own="dsv1"):
     """(device ms per call, kernels per call, host-to-device copies per
     call, device ms per call of the kernels whose names hold `own`, a
-    string or a tuple of them) from torch.profiler's device events over
-    reps calls (memcpy and memset events left out of the first two)."""
+    string or a tuple of them, the union of the call's kernel intervals)
+    from torch.profiler's device events over reps calls (memcpy and
+    memset events left out of all but the copies). The first and fourth
+    sum kernel durations; a kernel chained by programmatic dependent
+    launch starts before the one it waits on ends, and its duration
+    counts that wait, so where kernels overlap the union is the device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -110,16 +122,52 @@ def device_ms(fn, reps: int, own="dsv1"):
         if any(o in e.key for o in ((own,) if isinstance(own, str)
                                     else own)):
             own_us += e.self_device_time_total
-    return us * 1e-3 / reps, n / reps, h2d / reps, own_us * 1e-3 / reps
+    union = union_us((e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith(("Memcpy", "Memset"))) * 1e-3
+    return (us * 1e-3 / reps, n / reps, h2d / reps, own_us * 1e-3 / reps,
+            union / reps)
 
 
-def timed(name, fn, reps, own):
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time per call of fn with the host out of the way: `calls`
+    calls captured in one CUDA graph, replayed `reps` times between CUDA
+    events."""
+    import torch
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (calls * reps)
+
+
+def timed(name, fn, reps, own, graph=False):
+    """A row: CUDA-event ms a call, device_ms' numbers and, with graph,
+    graph_ms (for calls that never wait on the host)."""
     ev = event_ms(fn, reps)
-    dev, kern, h2d, own_ms = device_ms(fn, reps, own)
+    dev, kern, h2d, own_ms, union = device_ms(fn, reps, own)
     tag = f"{own}*" if isinstance(own, str) else "own_kernels"
-    return {"name": name, "ms": ev, "device_ms": dev,
-            "kernels_per_call": kern, "h2d_copies_per_call": h2d,
-            f"device_ms_of_{tag}": own_ms}
+    row = {"name": name, "ms": ev, "device_ms": dev,
+           "device_union_ms": union, "kernels_per_call": kern,
+           "h2d_copies_per_call": h2d, f"device_ms_of_{tag}": own_ms}
+    if graph:
+        row["graph_ms"] = graph_ms(fn)
+    return row
 
 
 def haar_cases(dev):
@@ -300,7 +348,7 @@ def recon_cases(dev, clip):
     qv, wb = hzcc.encode_plane_core(coefs, q, True, 0, stable, tables[0])
     rows.append(timed(f"encode_plane_core {clip} luma P", lambda: (
         hzcc.encode_plane_core(coefs, q, True, 0, stable, tables[0])), 50,
-        OWN_KERNELS))
+        OWN_KERNELS, True))
     rows.append(timed(f"dequant_plane_grid {clip} luma P", lambda: (
         hzcc.dequant_plane_grid(wb, 5, q, True, 0, stable, tables[0])), 50,
         OWN_KERNELS))
@@ -315,7 +363,8 @@ def recon_cases(dev, clip):
             return bmc.add_residual(preds[0], sbt.coefs_to_plane(
                 sbt.inv_sbt(wb, q, True, True)))
         unit = "inv_sbt + coefs_to_plane + add_residual"
-    rows.append(timed(f"{unit} {clip} luma P", recon, 50, OWN_KERNELS))
+    rows.append(timed(f"{unit} {clip} luma P", recon, 50, OWN_KERNELS,
+                      True))
     return rows
 
 
@@ -413,7 +462,8 @@ def main():
                  + hme_effort_cases(dev, "4k_cli")
                  + hme_effort_cases(dev, "cif"))
     if "recon" in only:
-        rows += recon_cases(dev, "1080p") + recon_cases(dev, "4k_cli")
+        rows += (recon_cases(dev, "1080p") + recon_cases(dev, "4k_cli")
+                 + recon_cases(dev, "cif"))
     if args.e2e:
         rows.append(e2e_case(dev, args.e2e, args.e2e_clip))
     res = {"root": str(Path(dsv1_tpu_torch.__file__).parent.parent),
