@@ -1,0 +1,8 @@
+"""The encode requests' host time under no span of the program, whatever
+its name, per encoded frame: what the program's spans leave unnamed."""
+
+from harness import hostspans
+
+
+def read(t):
+    return hostspans.unattributed_ms_per_frame(t, "encode")

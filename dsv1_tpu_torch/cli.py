@@ -16,13 +16,17 @@ sequential `Decoder` with -drawinfo. -gopabr1 picks GOP-granular ABR on
 the GOP-parallel path; -effort1..3 widens the level-0 motion search on
 every encode path.
 `main(argv, device)` runs on the card unless the caller passes
-device="cpu".
+device="cpu". File I/O runs under `torch.profiler.record_function`
+spans: `cli.read` each input frame read by the encode, `cli.write` the
+encode's output file and each frame the decode writes.
 """
 
 import contextlib
 import sys
 from dataclasses import dataclass
 from typing import Callable, Optional
+
+from torch.profiler import record_function
 
 from . import constants as C
 from .models.decoder import Decoder
@@ -261,7 +265,8 @@ def encode_main(argv, device="cuda") -> int:
         # GOP at a time, the sequential one a frame
         nonlocal frno, nencoded
         while maxframe <= 0 or frno < maxframe:
-            planes = read_frame(f, frno, w, h, subsamp)
+            with record_function("cli.read"):
+                planes = read_frame(f, frno, w, h, subsamp)
             if planes is None:
                 return
             if opts["v"]:
@@ -283,7 +288,7 @@ def encode_main(argv, device="cuda") -> int:
         bpf = len(out) * 8 // nencoded
         print(f"\nencoded {len(out)} bytes @ {bpf * fps} bps, "
               f"{bpf * fps // 1024} kbps. fps = {fps}, bpf = {bpf}")
-    with open(opts["out"], "wb") as f:
+    with record_function("cli.write"), open(opts["out"], "wb") as f:
         f.write(out)
     return 0
 
@@ -324,7 +329,8 @@ def decode_main(argv, device="cuda") -> int:
                 planes = [y, u, v]
             if opts["v"]:
                 print(f"decoded frame {fno}", end="\r", flush=True)
-            write_frame(f, fno, planes)
+            with record_function("cli.write"):
+                write_frame(f, fno, planes)
     if opts["v"]:
         print()
     return 0

@@ -22,12 +22,20 @@ device's chains are dispatched in turn, so distinct devices overlap.
 `iter_decode_gops` holds one chunk of decoded frames; a stream whose
 block size changes mid-stream goes to the sequential
 `models.decoder.Decoder`.
+
+Its steps run under `torch.profiler.record_function` spans: a stream's
+`decode.parse`, then per chunk and device `decode.upload` (`start`),
+per chunk `decode.chain` (the frame-index loop's dispatch) and per
+chunk and device `decode.read` (`finish`, the blocking read), each
+closed before a frame is handed to the caller. tools/torch_profile.py
+and the benchmark's readers read them.
 """
 
 from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import bits
 from ..constants import (MAX_BLOCK_SIZE, MAX_QP_BITS, MIN_BLOCK_SIZE,
@@ -40,6 +48,7 @@ from ..models.metadata import Metadata
 from ..device import resolve
 from ..models.encoder import coef_geometry, split_row
 from ..ops import bmc, frame as fr, hzcc, sbt
+from ..utils.blob import to_host
 from ..utils.stats import STATS
 from .mesh import Mesh
 
@@ -148,8 +157,8 @@ class GopDecoder:
     def planes_to_host(self, planes):
         """[(y, u, v) device planes] of L pictures -> [[y, u, v]] numpy
         planes, one fetch."""
-        host = torch.stack([torch.cat([o.reshape(-1) for o in outs])
-                            for outs in planes]).cpu().numpy()
+        host = to_host(torch.stack([torch.cat([o.reshape(-1) for o in outs])
+                                    for outs in planes]))
         return [self._split(row) for row in host]
 
     def _split(self, row):
@@ -208,7 +217,7 @@ class GopDecoder:
     def finish(self, st: _Chunk):
         """The chunk's decoded planes, one fetch: per chain [[y, u, v]]
         numpy planes."""
-        host = st.out.cpu().numpy()
+        host = to_host(st.out)
         return [[self._split(host[ci, k]) for k in range(len(pics))]
                 for ci, pics in enumerate(st.chains)]
 
@@ -263,6 +272,27 @@ def _parse_picture(data: bytes, meta: Metadata):
                 dcs=np.asarray(dcs, np.int32))
 
 
+def _parse_stream(stream: bytes):
+    """(metadata, parsed pictures) of a stream, its packets in order up to
+    the EOS; a picture before any metadata is skipped."""
+    meta = None
+    frames = []
+    for _t, pkt in iter_packets(stream):
+        try:
+            t = parse_packet_hdr(pkt)
+            if t == PT_META:
+                meta = parse_metadata(pkt)
+            elif t == PT_EOS:
+                break
+            elif pt_is_pic(t) and meta is not None:
+                frames.append(_parse_picture(pkt, meta))
+        except (ValueError, IndexError):
+            # corrupt or truncated packet: skip it, like the reference's
+            # in-stream guards (hzcc.c:337-339, dsv_decoder.c:398-401)
+            continue
+    return meta, frames
+
+
 def _plan_stream(frames):
     """Chains of picture indices: every no-ref picture starts one."""
     chains = []
@@ -294,32 +324,20 @@ def iter_decode_gops(stream: bytes, device="cuda", *, mesh: Mesh | None = None,
     metadata before the first frame."""
     devs = ([resolve(device)] if mesh is None
             else list(mesh.devices.reshape(-1)))
-    meta = None
-    frames = []
-    for _t, pkt in iter_packets(stream):
-        try:
-            t = parse_packet_hdr(pkt)
-            if t == PT_META:
-                meta = parse_metadata(pkt)
-            elif t == PT_EOS:
-                break
-            elif pt_is_pic(t) and meta is not None:
-                frames.append(_parse_picture(pkt, meta))
-        except (ValueError, IndexError):
-            # corrupt or truncated packet: skip it, like the reference's
-            # in-stream guards (hzcc.c:337-339, dsv_decoder.c:398-401)
-            continue
+    with record_function("decode.parse"):
+        meta, frames = _parse_stream(stream)
+        mixed = len({(f["blk_w"], f["blk_h"]) for f in frames}) > 1
+        chains = [] if mixed else _plan_stream(frames)
     if meta_box is not None:
         meta_box["meta"] = meta
     if meta is None or not frames:
         return
-    if len({(f["blk_w"], f["blk_h"]) for f in frames}) != 1:
+    if mixed:
         # a block size that changes mid-stream: the sequential decoder
         # (as the JAX package falls back to its own)
         from ..models.decoder import Decoder
         yield from Decoder(device=devs[0]).decode_stream(stream)
         return
-    chains = _plan_stream(frames)
     per_dev = chains_per_device(chains, meta.width, meta.height)
     decs = [build_gop_decoder(meta.subsamp, meta.width, meta.height,
                               frames[0]["blk_w"], frames[0]["blk_h"],
@@ -330,14 +348,19 @@ def iter_decode_gops(stream: bytes, device="cuda", *, mesh: Mesh | None = None,
         for d, dec in enumerate(decs):
             sub = chains[s + d * per_dev:s + (d + 1) * per_dev]
             if sub:
-                parts.append((dec, sub, dec.start(
-                    [[frames[i] for i in ch] for ch in sub])))
+                with record_function("decode.upload"):
+                    parts.append((dec, sub, dec.start(
+                        [[frames[i] for i in ch] for ch in sub])))
         # frame index outermost, devices inside: distinct devices overlap
-        for k in range(max(len(ch) for _d, sub, _s in parts for ch in sub)):
-            for dec, _sub, st in parts:
-                dec.frame(st, k)
+        with record_function("decode.chain"):
+            for k in range(max(len(ch) for _d, sub, _s in parts
+                               for ch in sub)):
+                for dec, _sub, st in parts:
+                    dec.frame(st, k)
         for dec, sub, st in parts:
-            for ch, planes in zip(sub, dec.finish(st)):
+            with record_function("decode.read"):
+                planes_h = dec.finish(st)
+            for ch, planes in zip(sub, planes_h):
                 for i, p in zip(ch, planes):
                     yield frames[i]["fno"], p
                     frames[i] = None   # free the symbols as we go

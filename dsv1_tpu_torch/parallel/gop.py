@@ -65,7 +65,11 @@ host time covers its device work (`gop.stability` queues device work
 that `gop.recon_chain`'s read waits for). Inside the recon chain,
 `gop.rate_read` spans each per-frame ABR frame's law and quality read:
 its host time is the per-frame sync, mostly the wait for the previous
-frame's device work. tools/torch_profile.py reads them.
+frame's device work. `encode.read` spans each blocking read of a chunk
+(inside `gop.motion` and `gop.recon_chain`), `encode.intake` the
+reading and stacking of each chunk's input frames (`_chunks`), and
+`encode.finish` a request's end (the state read, the EOS, the stream's
+copy). tools/torch_profile.py and the benchmark's readers read them.
 """
 
 import math
@@ -95,7 +99,7 @@ from ..models.encoder import (MOTION_KEYS, MV_KEYS, EncoderConfig,
 from ..ops import frame as fr, hzcc, piclen, rc
 from ..ops.hme import hme_batch
 from ..state import EncoderState
-from ..utils.blob import fetch, fetch_dense
+from ..utils.blob import fetch, fetch_dense, to_host
 from ..utils.stats import STATS
 from .mesh import Mesh, gop_rows
 from .tile import tile_hook
@@ -357,6 +361,7 @@ class GopEncoder:
                     q, st.rc = law[0](st.rc, is_p, forced_i if i == 0
                                       else not is_p)
                     quality = int(q.item())   # the one host read per frame
+                    STATS["host_reads"] += 1
                 quant = crf_quant(quality)
             new_ref = None
             for sub_p in (True, False):
@@ -419,16 +424,20 @@ class GopEncoder:
                           ("mvy", torch.int16), ("submask", torch.uint8)):
                 parts[f"p_{k}"] = fields[k].to(dt)
         yield
-        host = fetch(parts)   # one read per chunk
-        overflow = any(host[f"i_nbig{c}"].any() for c in range(3)) \
-            or (n > 1 and bool(host["p_ovf"].any()))
+        with record_function("encode.read"):
+            host = fetch(parts)   # one read per chunk
+        ovf_i = any(host[f"i_nbig{c}"].any() for c in range(3))
+        ovf_p = n > 1 and bool(host["p_ovf"].any())
+        STATS["overflow_i"] += ovf_i
+        STATS["overflow_p"] += ovf_p
         dense_h = None
-        if overflow:
+        if ovf_i or ovf_p:
             # a cap overflowed: the chunk's dense planes, still on the
             # device, are packed instead (the JAX package's dense redo
             # computes the same planes)
             STATS["overflow_redos"] += 1
-            dense_h = fetch({"dense": torch.cat(qbuf, -1)})["dense"]
+            with record_function("encode.read"):
+                dense_h = fetch({"dense": torch.cat(qbuf, -1)})["dense"]
         return ChunkOutput(self, host, hr, frame_q, dense_h)
 
 
@@ -467,18 +476,23 @@ def _chunks(frames, C: int, G: int, pad: bool = True):
     per chunk of C GOPs of G frames, read from any iterable as they
     come. A short tail is padded by repeating its last real frame (the
     JAX package's _ChunkReader); with pad False (C = 1) a short tail
-    comes as (1, n, fsz)."""
+    comes as (1, n, fsz). Each chunk's pulls from `frames`, packing and
+    stacking run under an `encode.intake` span (one more for the pull
+    that finds the input's end), closed before the chunk is handed on."""
     it = iter(frames)
     f0 = 0
     while True:
-        rows = [fr.np_pack_planes(f) for f in islice(it, C * G)]
-        if not rows:
+        with record_function("encode.intake"):
+            rows = [fr.np_pack_planes(f) for f in islice(it, C * G)]
+            k = len(rows)
+            if k:
+                if pad:
+                    rows += [rows[-1]] * (C * G - k)
+                chunk = np.stack(rows).reshape(C if pad else 1, -1,
+                                               rows[0].size)
+        if not k:
             return
-        k = len(rows)
-        if pad:
-            rows += [rows[-1]] * (C * G - k)
-        yield f0, np.stack(rows).reshape(C if pad else 1, -1,
-                                         rows[0].size), k
+        yield f0, chunk, k
         f0 += k
 
 
@@ -537,11 +551,14 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev,
             for c in range(3):
                 for j, name in enumerate(("q8", "pos", "vals")):
                     parts[f"{name}{c}"] = torch.stack([f[c][j] for f in comp])
-            host = fetch(parts)   # one read per chunk
+            with record_function("encode.read"):
+                host = fetch(parts)   # one read per chunk
             overflow = bool((host["nbig"] > 0).any())
+            STATS["overflow_i"] += overflow
             if overflow:
                 STATS["overflow_redos"] += 1
-                dense_h = fetch_dense(dense)
+                with record_function("encode.read"):
+                    dense_h = fetch_dense(dense)
         with record_function("gop.pack"):
             if not overflow:
                 pkt, prev_link = bits.pack_chunk(
@@ -694,7 +711,8 @@ class _GopRunner:
                 outs.append((imgs, mv, torch.cat(parts)))
             # one host read per row and chunk: the average lumas and the
             # has_ref verdicts
-            hv = [o[2].cpu().numpy() for o in outs]
+            with record_function("encode.read"):
+                hv = [to_host(o[2]) for o in outs]
             k = self.per * n
             return ([(o[0], o[1]) for o in outs],
                     np.concatenate([h[:k] for h in hv]).reshape(C, n),
@@ -897,10 +915,9 @@ def encode_stream_gops(frames, meta: Metadata,
                          "device); use abr_mode='gop' for meshes / shard "
                          "state")
     w, h, subsamp = meta.width, meta.height, meta.subsamp
+    st = None
     if cfg.gop == GOP_INTRA:
         out, prev_link = _encode_intra(frames, meta, cfg, dev, _fnum_base)
-        nblk = block_geometry(w, h)[2] * block_geometry(w, h)[3]
-        state = (np.zeros((nblk, 2), np.int32), 0)
     else:
         G = cfg.gop
         encs = [build_gop_encoder(subsamp, w, h, G, cfg.quality, cfg.do_scd,
@@ -930,10 +947,16 @@ def encode_stream_gops(frames, meta: Metadata,
             out, prev_link = _encode_chunks(
                 frames, G, per * len(encs), _GopRunner(encs, meta, per), st,
                 _fnum_base, _AbrState(cfg, meta) if abr else None)
-        state = (st.stability.cpu().numpy().astype(np.int32),
-                 int(st.refresh_ctr))
-    if _emit_eos:
-        out.extend(encode_eos_packet(prev_link))
+    with record_function("encode.finish"):
+        if st is None:
+            nblk = block_geometry(w, h)[2] * block_geometry(w, h)[3]
+            state = (np.zeros((nblk, 2), np.int32), 0)
+        else:
+            state = (to_host(st.stability).astype(np.int32),
+                     int(st.refresh_ctr))
+        if _emit_eos:
+            out.extend(encode_eos_packet(prev_link))
+        out = bytes(out)
     if _return_state:
-        return bytes(out), prev_link, state
-    return bytes(out)
+        return out, prev_link, state
+    return out

@@ -6,10 +6,14 @@ host), copies that once, into pinned memory from a CUDA device, and
 hands back numpy views of the pieces. The encoders read each GOP's (or
 frame's) compacted planes, DCs, stable blocks and motion fields this
 way (the JAX package's blob_concat / blob_split, dsv1_tpu/ops/opt.py).
+`to_host` reads one tensor. Both count each read in `STATS`
+(`host_reads`, and its bytes in `d2h_bytes`), whatever the device.
 """
 
 import numpy as np
 import torch
+
+from .stats import STATS
 
 _NP = {torch.int32: np.int32, torch.int16: np.int16, torch.int8: np.int8,
        torch.uint8: np.uint8, torch.bool: np.bool_}
@@ -27,6 +31,7 @@ def fetch(parts: dict) -> dict:
     else:
         host = buf
     raw = host.numpy()
+    _count(raw.nbytes)
     out, off = {}, 0
     for (name, t), f in zip(items, flat):
         n = f.numel()
@@ -34,6 +39,19 @@ def fetch(parts: dict) -> dict:
             tuple(t.shape))
         off += n
     return out
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array, through one blocking copy from its
+    device."""
+    a = t.cpu().numpy()
+    _count(a.nbytes)
+    return a
+
+
+def _count(nbytes: int):
+    STATS["host_reads"] += 1
+    STATS["d2h_bytes"] += nbytes
 
 
 def fetch_dense(frames) -> np.ndarray:

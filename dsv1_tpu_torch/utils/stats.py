@@ -30,6 +30,19 @@ paths run; callers set it to 0 with `STATS.clear()`. Keys:
 - `overflow_redos`: chunks of GOPs (gop 0: chunks of frames;
   sequential: frames) whose compacted planes overflowed their caps and
   were packed from the dense planes instead;
+- `overflow_i`, `overflow_p`: of those chunks on the GOP path and at
+  gop 0, the ones whose I planes overflowed their cap of large values
+  (`nbig`) and the ones whose P planes overflowed their cap of (run,
+  value) pairs (`p_ovf`); a chunk can count in both, and each chunk of
+  the GOP path adds 0 to both where nothing overflowed;
+- `host_reads`, `d2h_bytes`: blocking device-to-host reads through
+  `utils/blob.py` `fetch` and `to_host`, and their bytes, counted on
+  every device: on the GOP encode and decode paths each chunk's
+  compacted and dense planes, the motion verdicts, the stability state
+  at the end of an encode and the decoded planes (the sequential
+  `Encoder`'s compacted reads and `Decoder`'s planes count too);
+  `host_reads` also counts the per-frame ABR quality read (`.item()`,
+  no bytes counted);
 - `calibration_gop`: under GOP-granular ABR, the first GOP of the chunk
   on which the rate model was calibrated (absent until it has been).
 

@@ -10,9 +10,12 @@ arguments utils/golden.py API gives them (`--gops-per-device N`
 overrides the chunk of an `encode_stream_gops` clip). Reads the layer
 spans the encoder records (per chunk of GOPs `gop.upload`, `gop.motion`,
 `gop.stability`, `gop.recon_chain` with `gop.rate_read` inside it under
-ABR, `gop.pack`, and `gop.intra_core` at gop 0;
-parallel/gop.py; per frame of the sequential Encoder `seq.motion`,
-`seq.core`, `seq.pack`; models/encoder.py), the device busy share, the
+ABR, `gop.pack`, and `gop.intra_core` at gop 0, and `encode.intake`,
+`encode.read` (the blocking reads, inside the `gop.*` spans),
+`encode.finish`; parallel/gop.py; `cli.read`, `cli.write`, cli.py; per
+frame of the sequential Encoder `seq.motion`, `seq.core`, `seq.pack`;
+models/encoder.py; the decode's `decode.parse`, `decode.upload`,
+`decode.chain`, `decode.read`, parallel/decode.py), the device busy share, the
 top device kernels, the device kernels launched per encoded frame
 (kernel events, memcpy and memset left out, over the clip's frames), the
 device-to-host copies per frame (the host's reads of the device) and
@@ -41,7 +44,9 @@ sys.path.insert(0, str(ROOT))
 
 SPANS = ("gop.upload", "gop.motion", "gop.stability", "gop.recon_chain",
          "gop.rate_read", "gop.pack", "gop.intra_core", "seq.motion",
-         "seq.core", "seq.pack")
+         "seq.core", "seq.pack", "encode.intake", "encode.read",
+         "encode.finish", "cli.read", "cli.write", "decode.parse",
+         "decode.upload", "decode.chain", "decode.read")
 
 
 def _sync():
@@ -168,7 +173,7 @@ def main():
         STATS.clear()
     enc_wall, enc_busy, spans, enc_top, enc_k, enc_r, enc_b = profile(encode)
     redos = None if STATS is None else STATS["overflow_redos"]
-    dec_wall, dec_busy, _, dec_top, dec_k, dec_r, dec_b = profile(
+    dec_wall, dec_busy, dec_spans, dec_top, dec_k, dec_r, dec_b = profile(
         lambda: decode(stream))
     nf = len(frames)
 
@@ -188,6 +193,7 @@ def main():
                       "top_kernels_us": enc_top},
            "decode": {"wall_s": dec_plain_wall,
                       "profiled_wall_s": dec_wall,
+                      "spans_s": dec_spans,
                       "device_busy_share": dec_busy,
                       "kernels_per_frame": dec_k / nf,
                       "host_reads_per_frame": dec_r / nf,
