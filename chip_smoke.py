@@ -34,7 +34,11 @@ non-zero:
    chroma, odd level sizes at several depths (102x86 and 1918x1078, C =
    4 with a quant per plane, int32 stability maps at 1918x1078) and the
    inverse's largest coarse stage (1776x1760); each timed on its 1080p
-   unit (a luma plane; the prologue a frame), with 4K and CIF beside it. Equality is exact (tolerance
+   unit (a luma plane; the prologue a frame), with 4K and CIF beside it;
+   and `hzcc_compact` (`hzcc.compact_exact`, the exact compaction of an
+   overflowed chunk) on a 12-frame chunk at 1080p, at 4K with both caps
+   overflowed and at CIF (4 GOPs), timed at 4K beside the host route it
+   replaced (`compact_rows`). Equality is exact (tolerance
    0: the codec is integer-only). Each kernel is timed with CUDA events
    after warm-up, wrappers included, and with torch.profiler (device
    only: the union of each call's kernel intervals). Each row gets the least time the card could take
@@ -147,7 +151,9 @@ sequential `Decoder`)
 and from each wrapper's launches per call at the clip's geometry
 (`predict_launches`). Each encode prints its `overflow_redos`: the
 chunks of GOPs (gop 0: chunks of frames; sequential: frames) whose
-compaction overflowed and were packed from their dense planes.
+compaction overflowed and were packed from every symbol of their planes
+(the GOP path: `hzcc_compact`'s lists, three launches a chunk; gop 0
+and sequential: the dense planes).
 
 The line before the card's line lists every kernel with its launches
 summed over the main paths of phases 5 to 10 (4k_cli's level 0 on the
@@ -178,7 +184,7 @@ FILTER_OPS = 9             # a filtered sample: 4 taps, rounding, clamp
 # `hme_refine_level0` counts `hme_refine`'s level-0 launches apart
 KERNELS = ("mc", "hme_refine", "hme_refine_level0", "hme_base", "hme_wide",
            "haar_fwd", "residual_in", "b4t_fwd", "hzcc_quant",
-           "hzcc_dequant", "inv_sbt")
+           "hzcc_dequant", "inv_sbt", "hzcc_compact")
 # the recon chain's kernels of an encode (csrc/recon.cu, csrc/hzcc.cu)
 # and of a decode
 ENC_RECON = ("residual_in", "b4t_fwd", "hzcc_quant", "inv_sbt")
@@ -915,6 +921,133 @@ def recon_rows(dev, bound, clips):
     return rows, cases
 
 
+def compact_chunk(dev, w, h, C, seed, dense=False):
+    """A chunk's quantized planes as `GopEncoder.chain_steps` holds them
+    (per plane c, (C, 12, N_c) int32 on dev) with their nonzero counts
+    (3, C * 12): mostly sparse, with the causes of overflow in it: a
+    nearly empty row (runs past 0xFFFE), an empty row, values past int16,
+    |q| > 127 outside the LL; with `dense` the P slots of frame 1 also
+    hold more nonzeros than any P cap takes (both caps overflow)."""
+    import numpy as np
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.models.encoder import block_geometry, coef_geometry
+    rng = np.random.default_rng(seed)
+    tables = coef_geometry(dt.SUBSAMP_420, w, h,
+                           *block_geometry(w, h)[2:])[2]
+    n = 12
+    planes, counts = [], []
+    for c, t in enumerate(tables):
+        dens = np.full((C, n, 1), 0.01)
+        if dense:
+            dens[:, 1] = 0.1
+        # device-side draws: a 4K chunk is 100 M positions a plane
+        g = torch.Generator(device=dev).manual_seed(seed * 3 + c)
+        u = torch.rand((C, n, t.n), generator=g, device=dev)
+        mag = torch.randint(1, 60, (C, n, t.n), generator=g, device=dev,
+                            dtype=torch.int32)
+        q = torch.where(u < torch.from_numpy(dens).float().to(dev),
+                        torch.where(u < 0.003, -mag, mag), 0) \
+            .to(torch.int32)
+        q[0, 2] = 0
+        q[0, 2, rng.integers(0, t.n, 2)] = 5
+        q[0, 3] = 0
+        q[0, 4, rng.integers(0, t.n, 4)] = torch.tensor(
+            [40000, -70000, 300, -128], dtype=torch.int32, device=dev)
+        q[:, 0, t.n - 1] = 1000
+        planes.append(q.contiguous())
+        counts.append((q != 0).sum(-1).reshape(-1).cpu().numpy())
+    return planes, np.stack(counts), tables
+
+
+def compact_rows(dev, bound):
+    """`hzcc_compact` (ops/hzcc.py compact_exact, csrc/hzcc.cu) against
+    its plain version on a 12-frame chunk at 1080p (1 GOP), at 4K with
+    both caps overflowed (the compactions' verdicts say so) and at CIF (4
+    GOPs a chunk, the JAX rule), three launches a call; timed at 4K
+    beside the route it replaced on the host (the dense int32 read and
+    numpy runs_from_qvals a plane of every frame) and its own (the
+    kernel, the one read of the lists and their cutting), host clock."""
+    import numpy as np
+    import torch
+
+    from dsv1_tpu_torch.kernels.build import LAUNCHES
+    from dsv1_tpu_torch.ops import hzcc
+    from dsv1_tpu_torch.utils.blob import fetch
+    err, extra, cases = 0, {}, []
+    for name, (w, h), C, dense in (("1080p", (1920, 1080), 1, False),
+                                   ("4k", (3840, 2160), 1, True),
+                                   ("cif", (352, 288), 4, False)):
+        planes, counts, tables = compact_chunk(dev, w, h, C, 17, dense)
+        total = int(counts.sum())
+        before = LAUNCHES["hzcc_compact"]
+        got = hzcc.compact_exact(planes, total)
+        torch.cuda.synchronize()
+        if LAUNCHES["hzcc_compact"] - before != 3:
+            raise AssertionError("hzcc_compact: not 3 launches a call")
+        want = hzcc.compact_exact_plain(planes, total)
+        bad = int((got != want).sum())
+        err = max(err, bad)
+        host = got.cpu().numpy()
+        lists = hzcc.exact_lists(host, counts)
+        dq = [q.reshape(-1, q.shape[-1]).cpu().numpy() for q in planes]
+        for c in range(3):
+            for r in (0, 2, 3, 4, len(dq[c]) - 1):
+                want_r = hzcc.runs_from_qvals(dq[c][r])
+                if not (np.array_equal(lists[c][r][0], want_r[0])
+                        and np.array_equal(lists[c][r][1], want_r[1])):
+                    raise AssertionError(f"hzcc_compact {name}: plane {c} "
+                                         f"row {r} differs from "
+                                         "runs_from_qvals")
+        ovf_i = any(int(hzcc.compact_dense_i(q[:, 0], hzcc.ll_size(t))[3]
+                        .max()) > 0 for q, t in zip(planes, tables))
+        ovf_p = any(bool(hzcc.compact_sparse_p(q[:, 1:], 16)[3].any())
+                    for q in planes)
+        positions = sum(q.numel() for q in planes)
+        work = (4 * positions + 8 * total + 4, 0)
+        cases.append({"case": name, "rows": 12 * C, "positions": positions,
+                      "symbols": total, "mismatches": bad,
+                      "overflow_i": ovf_i, "overflow_p": ovf_p})
+        if name == "4k" and not (ovf_i and ovf_p):
+            raise AssertionError("the 4K chunk must overflow both caps")
+        fn = lambda: hzcc.compact_exact(planes, total)  # noqa: E731
+        tag = "" if name == "4k" else f"_{name}"
+        extra.update({f"ms{tag}": cuda_ms(fn, 20),
+                      f"device_ms{tag}": device_ms(fn, 20),
+                      f"plain_ms{tag}": cuda_ms(
+                          lambda: hzcc.compact_exact_plain(planes, total), 3),
+                      f"bound_ms{tag}": bound(*work)[0]})
+        if name == "4k":
+            def parent_route():
+                d = fetch({"dense": torch.cat(planes, -1)})["dense"]
+                off = np.cumsum([0] + [t.n for t in tables])
+                return [hzcc.runs_from_qvals(row[off[c]:off[c + 1]])
+                        for row in d.reshape(-1, off[-1]) for c in range(3)]
+
+            def exact_route():
+                return hzcc.exact_lists(fetch({"syms": hzcc.compact_exact(
+                    planes, total)})["syms"], counts)
+            for key, fn in (("parent_route_ms", parent_route),
+                            ("exact_route_ms", exact_route)):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    fn()
+                extra[key] = (time.perf_counter() - t0) * 1e3 / 3
+        del planes, got, want, host, lists, dq
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "compact_cases": cases})
+    return row("hzcc_compact", "dsv1_tpu_torch/csrc/hzcc.cu",
+               "none (the host's numpy runs_from_qvals over the dense "
+               "planes, ops/hzcc.py)", err, extra.pop("ms"),
+               extra.pop("plain_ms"), extra.pop("bound_ms"), "bytes",
+               shape="a 12-frame 4K chunk (149 M positions), both caps "
+                     "overflowed; *_1080p: 1 GOP, *_cif: 4 GOPs",
+               launches_per_call=3, **extra)
+
+
 def phase_kernels(dev, bound, clips):
     """Each kernel vs its plain version at the main path's 1080p and 4K
     shapes, on the arguments the main path itself passes to the kernel."""
@@ -1021,6 +1154,7 @@ def phase_kernels(dev, bound, clips):
     rows += recon
     emit({"phase": "kernels", "recon_cases": cases})
     torch.cuda.empty_cache()
+    rows.append(compact_rows(dev, bound))
     for r in rows:
         emit({"phase": "kernels", **r})
         if r["max_abs_err"] != 0:
@@ -1164,7 +1298,9 @@ def predict_launches(stats, w: int, h: int, tiles: int = 1) -> dict:
     decoder reconstruction (`decode_calls`) `hzcc_dequant` once and
     `inv_sbt` `inv_plan`'s launches a plane. In column tiles the B4T and
     the inverse run on their kernels only for planes whose transforms
-    are not split (`tiled_whole`)."""
+    are not split (`tiled_whole`). `hzcc_compact` three launches per
+    chunk of the GOP path whose compaction overflowed
+    (`overflow_exact`)."""
     from dsv1_tpu_torch.models.encoder import (auto_pyramid_levels,
                                                block_geometry, coef_geometry)
     from dsv1_tpu_torch.constants import SUBSAMP_420
@@ -1194,7 +1330,8 @@ def predict_launches(stats, w: int, h: int, tiles: int = 1) -> dict:
             "hme_refine": stats.get("hme_calls", 0) * (levels + 1)
             + stats.get("hme_calls_wide", 0) * (levels + 2),
             "hme_refine_level0": stats.get("hme_calls_wide", 0),
-            "hme_wide": stats.get("hme_calls_wide", 0)}
+            "hme_wide": stats.get("hme_calls_wide", 0),
+            "hzcc_compact": 3 * stats.get("overflow_exact", 0)}
 
 
 def check_predicted(path, launches, stats, w, h, tiles=1):

@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel: each wrapper adds one where it launches its kernel
 # (`refine_level` at level 0 also to `hme_refine_level0`; `inv_sbt` one
-# per launch of its pyramid, ops/sbt.py `inv_plan`)
+# per launch of its pyramid, ops/sbt.py `inv_plan`; `hzcc_compact` three
+# a call)
 LAUNCHES = collections.Counter()
 
 _lib = None
@@ -110,10 +111,12 @@ def lib():
                                    P]
         L.dsv1_b4t_fwd.argtypes = [P, I64, I, I, I, P, I64, P, I64, P]
         L.dsv1_residual_in.argtypes = [P, I64, P, I64, P, P, I, I, P]
+        L.dsv1_hzcc_compact.argtypes = [P, I, P, I, P, I, I64, P, I64, P, I64,
+                                        P]
         for fn in (L.dsv1_mc_frame, L.dsv1_hme_refine, L.dsv1_hme_coarse,
                    L.dsv1_hme_base, L.dsv1_hme_wide, L.dsv1_haar_pyramid,
                    L.dsv1_hzcc_quant, L.dsv1_hzcc_dequant, L.dsv1_inv_sbt,
-                   L.dsv1_b4t_fwd, L.dsv1_residual_in):
+                   L.dsv1_b4t_fwd, L.dsv1_residual_in, L.dsv1_hzcc_compact):
             fn.restype = ctypes.c_int
         _lib = L
     return _lib

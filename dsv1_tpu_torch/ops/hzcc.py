@@ -23,7 +23,11 @@ int8 plus the LL's large values, P planes as capped (run, value) lists),
 with the JAX package's layouts and overflow verdicts; `sparse_cap_div`
 sizes the P cap from the quant. `encode_plane_core` and the compactions
 take any leading batch dimensions (the planes of one frame index of
-every GOP of a chunk), each element on its own.
+every GOP of a chunk), each element on its own. Where a cap overflows,
+`compact_exact` (csrc/hzcc.cu on CUDA tensors) lists every symbol of a
+chunk's planes, uncapped, at offsets from the counts the host already
+read, and `exact_lists` cuts the host copy into each plane's (run,
+value) lists.
 """
 
 import ctypes
@@ -351,6 +355,99 @@ def compact_sparse_p(qv, cap_div: int = 256):
            | (torch.where(valid, runs, 0).amax(-1) > 0xFFFE)
            | (torch.where(valid, vals.abs(), 0).amax(-1) > 0x7FFF))
     return _wrap_i16(runs), _wrap_i16(vals), cnt, ovf
+
+
+# positions a block of csrc/hzcc.cu's exact compaction takes (kCTile)
+COMPACT_TILE = 4096
+
+
+def _exact_rows(planes, total: int):
+    """(rows, positions a row per plane) of compact_exact's planes; raises
+    unless there are 3, int32, contiguous, on one device, with the same
+    rows, and total (the symbols, which the int32 buffer counts) is under
+    2^31 - 1. Positions over all rows may pass 2^31."""
+    if len(planes) != 3:
+        raise ValueError("compact_exact takes a chunk's 3 planes")
+    if not 0 <= total < (1 << 31) - 1:
+        raise ValueError("compact_exact takes under 2^31 - 1 symbols")
+    rows, ns = None, []
+    for q in planes:
+        n = q.shape[-1] if q.dim() else 0
+        if q.dtype != torch.int32 or not q.is_contiguous() or n < 1 \
+                or q.device != planes[0].device:
+            raise ValueError("compact_exact takes contiguous int32 planes "
+                             "(..., n), n > 0, on one device")
+        r = q.numel() // n
+        if rows not in (None, r):
+            raise ValueError("compact_exact's planes must have the same rows")
+        rows = r
+        ns.append(n)
+    return rows, ns
+
+
+def compact_exact_plain(planes, total: int):
+    """The plain version of compact_exact."""
+    _exact_rows(planes, total)
+    runs, vals = [], []
+    for q in planes:
+        q2 = q.reshape(-1, q.shape[-1])
+        r, x = (q2 != 0).nonzero(as_tuple=True)
+        prev = torch.cat([x.new_full((1,), -1), x[:-1]])
+        first = torch.cat([r.new_ones(1, dtype=torch.bool)[:r.numel()],
+                           r[1:] != r[:-1]])
+        runs.append(x - torch.where(first, -1, prev) - 1)
+        vals.append(q2[r, x])
+    runs, vals = torch.cat(runs), torch.cat(vals)
+    out = torch.zeros(2 * total + 1, dtype=torch.int32, device=runs.device)
+    k = min(runs.numel(), total)
+    out[:k] = runs[:k].to(torch.int32)
+    out[total:total + k] = vals[:k]
+    out[2 * total] = runs.numel()
+    return out
+
+
+def compact_exact(planes, total: int):
+    """Every symbol of quantized planes, uncapped: the (run, value) pairs
+    that runs_from_qvals gives each row, for the chunks whose capped
+    compaction overflowed.
+
+    planes: 3 contiguous int32 tensors (..., n_c) of the same rows (a
+    chunk's planes c, each row a frame's plane in traversal order);
+    total: their nonzero count, which the host read with the capped
+    compaction. Returns int32 (2 total + 1,): the runs (u32 bits) of
+    plane 0's rows in order, then plane 1's and plane 2's, then the
+    values in the same order, then the count the compaction found, which
+    `exact_lists` checks against total (where they differ, the lists are
+    not defined). CUDA tensors: csrc/hzcc.cu's three launches; CPU
+    tensors: the plain version."""
+    if not planes[0].is_cuda:
+        return compact_exact_plain(planes, total)
+    from ..kernels.build import LAUNCHES, launch
+    rows, ns = _exact_rows(planes, total)
+    dev = planes[0].device
+    tiles = rows * sum(-(-n // COMPACT_TILE) for n in ns)
+    scratch = torch.empty(2 * tiles, dtype=torch.int64, device=dev)
+    out = torch.empty(2 * total + 1, dtype=torch.int32, device=dev)
+    launch("dsv1_hzcc_compact", planes[0],
+           *[v for q, n in zip(planes, ns) for v in (q.data_ptr(), n)],
+           rows, scratch.data_ptr(), tiles, out.data_ptr(), total)
+    LAUNCHES["hzcc_compact"] += 3
+    return out
+
+
+def exact_lists(buf: np.ndarray, counts: np.ndarray) -> list:
+    """compact_exact's buffer on the host as [plane][row] (runs u32,
+    vals i32) views; counts (planes, rows) the nonzero counts it was made
+    from. Raises where the compaction found another count."""
+    counts = np.asarray(counts, np.int64)
+    total = int(counts.sum())
+    if buf.size != 2 * total + 1 or int(buf[-1]) != total:
+        raise RuntimeError(f"exact compaction found {int(buf[-1])} symbols, "
+                           f"the capped compaction counted {total}")
+    runs, vals = buf[:total].view(np.uint32), buf[total:2 * total]
+    ends = np.cumsum(counts.reshape(-1)).reshape(counts.shape)
+    return [[(runs[e - k:e], vals[e - k:e]) for e, k in zip(er, kr)]
+            for er, kr in zip(ends.tolist(), counts.tolist())]
 
 
 def runs_from_qvals(qvals: np.ndarray):

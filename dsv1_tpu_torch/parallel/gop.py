@@ -20,14 +20,15 @@ compacted on the device (ops/hzcc.py: each I frame as dense int8 plus
 the LL's large values, each P slot as a capped (run, value) list), and
 the host reads the chunk's compacted planes, DCs, stable blocks and
 motion fields in one copy (`ChunkOutput`) and packs the whole chunk in
-one native call (bits.pack_chunk). When a cap overflows, the host reads
-that chunk's dense planes, still on the device, and packs it picture by
-picture: the same bytes (`STATS["overflow_redos"]` counts these
-chunks). A short tail is padded to a full chunk by repeating its last
-frame, as in the JAX package; padded frames are encoded and dropped at
-pack time. Frames are read chunk by chunk: a long or large input is
-never held whole. At gop 0 (intra only) every frame is its own GOP with
-no HME and no recon, and frames go through in chunks (`_encode_intra`).
+one native call (bits.pack_chunk). When a cap overflows, the device
+lists every symbol of that chunk's planes, uncapped (hzcc.compact_exact),
+and the host reads the lists and packs the chunk picture by picture:
+the same bytes (`STATS["overflow_redos"]` counts these chunks). A short
+tail is padded to a full chunk by repeating its last frame, as in the
+JAX package; padded frames are encoded and dropped at pack time. Frames
+are read chunk by chunk: a long or large input is never held whole. At
+gop 0 (intra only) every frame is its own GOP with no HME and no recon,
+and frames go through in chunks (`_encode_intra`).
 
 Over a mesh (`mesh=`: a GOP mesh, or a gop x tile mesh, parallel/mesh.py)
 a chunk is C GOPs for each row of the mesh (a 'gop' index), split
@@ -109,16 +110,17 @@ class ChunkOutput:
     """A chunk's encoder output on the host (C GOPs of n frames), read
     from the device in one copy: the compacted planes (`parts`,
     ops/hzcc.py layouts, each with a leading GOP axis), the per-frame
-    quants and, when a compaction cap overflowed, the dense planes.
-    `pack` assembles the chunk's packets."""
+    quants and, when a compaction cap overflowed, every plane's (run,
+    value) lists (`hzcc.exact_lists`, [plane][GOP * n + frame]). `pack`
+    assembles the chunk's packets."""
 
-    def __init__(self, enc, parts: dict, has_ref, quants, dense):
+    def __init__(self, enc, parts: dict, has_ref, quants, lists):
         self.enc, self.parts = enc, parts
         self.quants = np.asarray(quants, np.int32)        # (C, n)
         self.C, self.n = self.quants.shape
         self.has_ref = np.asarray(has_ref, bool).reshape(self.C, self.n - 1)
-        self.dense = dense     # (C, n, N) int32, or None
-        self.overflow = dense is not None
+        self.lists = lists
+        self.overflow = lists is not None
 
     def _p_arrays(self):
         """The P frames' fields as pack_chunk takes them, (C, n-1, ...)."""
@@ -159,9 +161,8 @@ class ChunkOutput:
                 pic = pack_picture(fnum0 + g * n + i, e.blk_w, e.blk_h,
                                    stable, is_p, True, mv,
                                    int(self.quants[g, i]),
-                                   split_row(self.dense[g, i],
-                                             e.plane_sizes), dc, e.nbh,
-                                   e.nbv)
+                                   [p[g * n + i] for p in self.lists], dc,
+                                   e.nbh, e.nbv)
                 set_link_offsets(pic, prev_link, len(pic))
                 prev_link = len(pic)
                 out.extend(pic)
@@ -407,7 +408,11 @@ class GopEncoder:
             ref = new_ref
             frame_q[:, i] = quant
             yield
-        parts = {"i_dc": dcs[:, 0], "i_stable": stable[:, 0]}
+        # the I planes' nonzero counts size the exact compaction's lists
+        # where a cap overflows (the P planes' are the sparse compaction's)
+        parts = {"i_dc": dcs[:, 0], "i_stable": stable[:, 0],
+                 "i_cnt": torch.stack([(qv[:, 0] != 0).sum(
+                     -1, dtype=torch.int32) for qv in qbuf], -1)}
         for c, (qv, ll_n) in enumerate(zip(qbuf, self.ll_sizes)):
             q8, pos, vals, nbig = hzcc.compact_dense_i(qv[:, 0], ll_n)
             parts.update({f"i_q8{c}": q8, f"i_pos{c}": pos,
@@ -430,15 +435,25 @@ class GopEncoder:
         ovf_p = n > 1 and bool(host["p_ovf"].any())
         STATS["overflow_i"] += ovf_i
         STATS["overflow_p"] += ovf_p
-        dense_h = None
+        lists = None
         if ovf_i or ovf_p:
-            # a cap overflowed: the chunk's dense planes, still on the
-            # device, are packed instead (the JAX package's dense redo
+            # a cap overflowed: every symbol of the chunk's planes, still
+            # on the device, is listed exactly at offsets from the counts
+            # read above, and packed instead (the JAX package's dense redo
             # computes the same planes)
             STATS["overflow_redos"] += 1
+            cnt = host["i_cnt"].T[:, :, None]
+            if n > 1:
+                cnt = np.concatenate([cnt, host["p_cnt"].transpose(2, 0, 1)],
+                                     -1)
+            cnt = cnt.reshape(3, C * n)
+            total = int(cnt.sum())
+            STATS["overflow_exact"] += 1
+            STATS["overflow_syms"] += total
+            buf = hzcc.compact_exact(qbuf, total)
             with record_function("encode.read"):
-                dense_h = fetch({"dense": torch.cat(qbuf, -1)})["dense"]
-        return ChunkOutput(self, host, hr, frame_q, dense_h)
+                lists = hzcc.exact_lists(fetch({"syms": buf})["syms"], cnt)
+        return ChunkOutput(self, host, hr, frame_q, lists)
 
 
 def _drive(gens) -> list:

@@ -29,7 +29,11 @@ paths run; callers set it to 0 with `STATS.clear()`. Keys:
   chains on one device, or one picture of the sequential `Decoder`);
 - `overflow_redos`: chunks of GOPs (gop 0: chunks of frames;
   sequential: frames) whose compacted planes overflowed their caps and
-  were packed from the dense planes instead;
+  were packed from uncapped symbols instead (gop 0 and sequential: from
+  the dense planes);
+- `overflow_exact`, `overflow_syms`: of those chunks, the ones of the
+  GOP path, whose every symbol ops/hzcc.py `compact_exact` listed on the
+  device (one call each), and the symbols they read;
 - `overflow_i`, `overflow_p`: of those chunks on the GOP path and at
   gop 0, the ones whose I planes overflowed their cap of large values
   (`nbig`) and the ones whose P planes overflowed their cap of (run,

@@ -4,7 +4,9 @@ chunk packer.
 The three compaction functions (ops/hzcc.py) must give the JAX package's
 arrays element for element, overflow verdicts included, for each cause
 of overflow: too many nonzeros, a zero run past 0xFFFE, a value past
-int16, and large values in and beyond the LL segment. The bindings
+int16, and large values in and beyond the LL segment. The exact
+compaction of overflowed chunks must give runs_from_qvals' symbols on
+the same planes, whatever overflowed. The bindings
 `runs_from_dense8` and `pack_chunk` must give the JAX package's `bits`
 output on the same inputs. `encode_stream_gops`, which compacts every
 GOP and packs it in one native call, must stay byte-identical to JAX
@@ -98,6 +100,66 @@ def test_compact_dense_i_matches_jax(case):
         wr, wv = jbits.runs_from_dense8(*(np.asarray(t) for t in want[:3]))
         np.testing.assert_array_equal(runs, wr)
         np.testing.assert_array_equal(vals, wv)
+
+
+EXACT_CASES = ([("sparse", k) for k in sorted(SPARSE_CASES)]
+               + [("dense", k) for k in sorted(DENSE_CASES)])
+
+
+@pytest.mark.parametrize("kind,case", EXACT_CASES)
+def test_compact_exact_matches_runs_from_qvals(kind, case):
+    """Each case's plane as the one row of the middle of three planes,
+    then as the middle row of three planes of two rows (the other rows
+    and planes drawn alongside), every cause of overflow among them: too
+    many nonzeros, a run past 0xFFFE, a value past int16, |q| > 127
+    outside the LL. The JAX package's runs_from_qvals is the oracle."""
+    if kind == "sparse":
+        n, density, big = SPARSE_CASES[case][:3]
+        q = _plane(n, density, n, big)
+    else:
+        n, density, ll_n, big = DENSE_CASES[case][:4]
+        q = _plane(n, density, n + ll_n, big, amp=120)
+    others = [_plane(m, 0.05, m + 1, ((m - 1, -70000),)) for m in (77, 5)]
+    one = [others[1][None], q[None], others[0][None]]
+    two = [np.stack(r) for r in ((others[1], others[1][::-1].copy()),
+                                 (q[::-1].copy(), q),
+                                 (others[0], others[0] * 0))]
+    for ps in (one, two):
+        counts = np.array([[np.count_nonzero(r) for r in p] for p in ps])
+        buf = thz.compact_exact([torch.from_numpy(p) for p in ps],
+                                int(counts.sum()))
+        lists = thz.exact_lists(buf.numpy(), counts)
+        for p, pl in zip(ps, lists):
+            assert len(pl) == len(p)
+            for r, (runs, vals) in zip(p, pl):
+                want = jhz.runs_from_qvals(r)
+                assert runs.dtype == want[0].dtype
+                assert vals.dtype == want[1].dtype
+                np.testing.assert_array_equal(runs, want[0])
+                np.testing.assert_array_equal(vals, want[1])
+        # the count the compaction found is checked against the host's
+        bad = counts.copy()
+        bad.flat[0] += 1
+        with pytest.raises(RuntimeError):
+            thz.exact_lists(thz.compact_exact(
+                [torch.from_numpy(p) for p in ps], int(bad.sum())).numpy(),
+                bad)
+
+
+def test_compact_exact_takes_chunks_past_2_31_positions():
+    """A chunk of 180 4K frames (12.44 M positions a frame, 2.24 G in
+    all) passes compact_exact's checks: only the symbol count, which the
+    int32 buffer holds, is bounded (meta tensors: shapes, no memory)."""
+    luma, chroma = 3840 * 2160, 1920 * 1080
+    planes = [torch.empty((15, 12, m), dtype=torch.int32, device="meta")
+              for m in (luma, chroma, chroma)]
+    assert 180 * (luma + 2 * chroma) >= 1 << 31
+    assert thz._exact_rows(planes, 300_000 * 180) == (180,
+                                                      [luma, chroma, chroma])
+    with pytest.raises(ValueError):
+        thz._exact_rows(planes, (1 << 31) - 1)
+    with pytest.raises(ValueError):
+        thz._exact_rows(planes[:2], 0)
 
 
 @pytest.mark.parametrize("quant", [0, 108, 159, 160, 255, 256, 2047])
@@ -194,3 +256,35 @@ def test_dense_packing_on_overflow_matches_jax():
     stats = _check_stream(flat + noisy, dict(quality=quality_percent(95),
                                              gop=4, stable_refresh=3))
     assert stats["overflow_redos"] == 1
+    assert stats["overflow_syms"] > 0
+
+
+def _checker(n):
+    """n frames of a one-pixel luma checkerboard, its phase flipping each
+    frame, on flat chroma: at quality 100 % the I planes' finest bands
+    hold values past int8, so the I cap overflows and the P cap does
+    not."""
+    yx = np.indices((H, W)).sum(0)
+    return [(((yx + k) % 2 * 255).astype(np.uint8),
+             np.full((H // 2, W // 2), 128, np.uint8),
+             np.full((H // 2, W // 2), 128, np.uint8)) for k in range(n)]
+
+
+def _noise(n):
+    rng = np.random.default_rng(11)
+    return [(rng.integers(0, 256, (H, W), dtype=np.uint8),
+             rng.integers(0, 256, (H // 2, W // 2), dtype=np.uint8),
+             rng.integers(0, 256, (H // 2, W // 2), dtype=np.uint8))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("clip,caps", [("checker", "i"), ("noise", "ip")])
+def test_exact_route_on_i_cap_overflow_matches_jax(clip, caps):
+    """Chunks whose I cap overflows (alone, and with the P cap) are packed
+    from the exact compaction's lists, and the bytes stay JAX's."""
+    frames = {"checker": _checker, "noise": _noise}[clip](4)
+    stats = _check_stream(frames, dict(quality=quality_percent(100), gop=4,
+                                       stable_refresh=3))
+    assert stats["overflow_redos"] == stats["overflow_exact"] == 1
+    assert stats["overflow_i"] >= 1 and stats["overflow_syms"] > 0
+    assert bool(stats.get("overflow_p")) == ("p" in caps)

@@ -185,4 +185,4 @@ def test_kernel_launch_makes_the_tensor_device_current(monkeypatch):
         ["dsv1_mc_frame", "dsv1_hme_refine", "dsv1_hme_coarse",
          "dsv1_hme_base", "dsv1_hme_wide", "dsv1_haar_pyramid",
          "dsv1_residual_in", "dsv1_b4t_fwd", "dsv1_hzcc_quant",
-         "dsv1_hzcc_dequant", "dsv1_inv_sbt"])
+         "dsv1_hzcc_dequant", "dsv1_inv_sbt", "dsv1_hzcc_compact"])
