@@ -1,8 +1,9 @@
 """The control of the comparison that decides `correct`: the reference
 with one guarantee broken (harness/check.py `control`) put in the
 program's place, on a cell's own inputs at its own size, against the
-plain reference. Prints, for each seed, the numbers a run compares; a
-sound comparison reads them above their limits.
+plain reference that judges the cell's configuration. Prints, for each
+seed, the numbers a run compares; a sound comparison reads them above
+their limits.
 
     python3 benchmark/control.py --workload CELL --seeds 11,12,13
 
@@ -35,17 +36,17 @@ def readings(cfg: dict, tr: dict, seed: int, dev) -> dict:
                 inp = tmp / f"in{k}.yuv"
                 inp.write_bytes(clip)
                 want = ref.cli_encode(inp, tmp / "ref.dsv")
-                with check.control():
+                with check.control(cfg):
                     got = ref.cli_encode(inp, tmp / "ctl.dsv")
             else:
                 want = ref.encode(frames)
-                with check.control():
+                with check.control(cfg):
                     got = ref.encode(frames)
             if tr["op"] == "encode":
                 d = {"stream_diff_bytes": check.diff_bytes(got, want)}
             else:
                 truth = ref.decode(want)
-                with check.control():
+                with check.control(cfg):
                     dec = ref.decode(want)
                 d = {"input_stream_diff_bytes": check.diff_bytes(got, want),
                      "decoded_diff_samples": check.diff_frames(dec, truth)}

@@ -39,6 +39,7 @@ class Cell:
 
     def __init__(self, cfg: dict, tr: dict, seed: int, devices: list,
                  tmp: Path):
+        check.package(cfg)   # a bad "reference" fails before any request
         self.cfg, self.tr = cfg, tr
         self.devices = devices
         self.prog = Program(cfg, devices)

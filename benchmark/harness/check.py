@@ -1,8 +1,13 @@
-"""What decides `correct`: the program's answers against the frozen
-plain reference (reference/dsvref), run after the window on the same
-inputs. Every number compared has the limit 0: the codec is integer
-exact, and its guarantee is a stream and a decode that agree bit for
-bit with a conforming codec's.
+"""What decides `correct`: the program's answers against a frozen plain
+reference, run after the window on the same inputs. Every number
+compared has the limit 0: the codec is integer exact, and its guarantee
+is a stream and a decode that agree bit for bit with a conforming
+codec's.
+
+The reference that judges a configuration is the package directory
+under reference/ that its file names under "reference": reference/dsvref
+where it names none. A package exports ENTRIES and has a `cli` module
+with `main`; the control also needs its `ops.sbt` rounding shifts.
 
 The control (`control()`) is the reference with one guarantee broken:
 its subband transforms' sign-symmetric rounding shifts (round2, round4,
@@ -10,12 +15,16 @@ round8 of the reference's sbt.c) taken as plain arithmetic shifts, the
 cheaper rounding a faster transform would be tempted by."""
 
 import contextlib
+import importlib
 from pathlib import Path
 
 import numpy as np
 
-from .geometry import dsvref
+from . import geometry
 from .program import cli_args, encoder_config
+
+ENTRIES = ("EncoderConfig", "Metadata", "quality_percent",
+           "encode_stream_gops", "decode_stream_gops")
 
 LIMITS = {"stream_diff_bytes": 0, "input_stream_diff_bytes": 0,
           "decoded_diff_samples": 0, "failed_requests": 0}
@@ -48,13 +57,35 @@ def diff_frames(got: list, want: list) -> int:
     return total
 
 
+def package(cfg: dict):
+    """The reference package that judges configuration `cfg`, imported;
+    raises ValueError naming the "reference" key and what is missing."""
+    name = cfg.get("reference", "dsvref")
+    where = geometry.REFERENCE / str(name)
+    say = f'configuration {cfg.get("name")!r}: "reference": {name!r}'
+    if not (isinstance(name, str) and name.isidentifier()
+            and (where / "__init__.py").is_file()):
+        raise ValueError(f"{say} names no package directory {where}")
+    mod = geometry.reference(name)
+    if Path(mod.__file__).resolve().parent != where.resolve():
+        raise ValueError(f"{say} was imported from {mod.__file__}, not "
+                         f"from {where}")
+    missing = [e for e in ENTRIES if not hasattr(mod, e)]
+    if not (where / "cli.py").is_file() or not callable(getattr(
+            importlib.import_module(name + ".cli"), "main", None)):
+        missing.append("cli.main")
+    if missing:
+        raise ValueError(f"{say} lacks {', '.join(missing)} in {where}")
+    return mod
+
+
 class Reference:
-    """The frozen plain codec on one device (the cell's first)."""
+    """The configuration's frozen plain codec on one device (the cell's
+    first)."""
 
     def __init__(self, cfg: dict, dev):
-        self.ref = dsvref()
-        from dsvref import cli
-        self.cli = cli
+        self.ref = package(cfg)
+        self.cli = self.ref.cli
         self.cfg, self.dev = cfg, dev
         self.meta = self.ref.Metadata(cfg["width"], cfg["height"],
                                       cfg["subsamp"])
@@ -75,11 +106,11 @@ class Reference:
 
 
 @contextlib.contextmanager
-def control():
-    """The reference's transforms with floor shifts in place of their
-    sign-symmetric rounding shifts, for the duration."""
-    dsvref()
-    from dsvref.ops import sbt
+def control(cfg: dict | None = None):
+    """The transforms of the reference that judges `cfg` (dsvref where
+    none is given) with floor shifts in place of their sign-symmetric
+    rounding shifts, for the duration."""
+    sbt = importlib.import_module(package(cfg or {}).__name__ + ".ops.sbt")
 
     def floor_shift(add, shift):
         return lambda v: (v + add) >> shift

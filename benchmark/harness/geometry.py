@@ -1,19 +1,28 @@
 """A frame's geometry from its size and format, as the frozen reference
 (reference/dsvref) computes it: what the roofline's bytes functions
-(work/*.py) read."""
+(work/*.py) read. Also the loader of the plain reference packages under
+reference/, one of which judges each configuration (check.py)."""
 
+import importlib
 import sys
 
 from .spec import BENCH
 
+REFERENCE = BENCH / "reference"
+
+
+def reference(name: str):
+    """The plain reference package `name` (reference/<name>/), imported
+    with reference/ on the path."""
+    path = str(REFERENCE)
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
 
 def dsvref():
     """The frozen reference package (reference/dsvref)."""
-    path = str(BENCH / "reference")
-    if path not in sys.path:
-        sys.path.insert(0, path)
-    import dsvref as ref
-    return ref
+    return reference("dsvref")
 
 
 def frame(w: int, h: int, subsamp: int) -> dict:

@@ -26,11 +26,14 @@ def small(name: str):
     return cfg, tr, w["chips"]
 
 
-def run_small(name: str, traced: bool = False, seconds: int = 0):
+def run_small(name: str, traced: bool = False, seconds: int = 0,
+              cfg_keys: dict | None = None):
     """One run of the harness (one request when seconds is 0, the traced
-    slice when traced) on the CPU; the result line's object."""
+    slice when traced) on the CPU, with `cfg_keys` set in the cut
+    configuration; the result line's object."""
     torch.set_num_threads(2)
     cfg, tr, chips = small(name)
+    cfg.update(cfg_keys or {})
     devices = [torch.device("cpu")] * chips
     return cell.run(name, SEED, seconds, traced, devices,
                     time.perf_counter(), cfg=cfg, tr=tr, say=lambda s: None)

@@ -96,6 +96,41 @@ def test_reference_imports_nothing_of_the_program():
         assert not bad, f"{f}: {bad}"
 
 
+def bound_names(path: Path) -> set:
+    """Names a module binds at its top level: imports, definitions,
+    assignments, and the strings of its `__all__`."""
+    names = set()
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in n.names}
+        elif isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            names.add(n.name)
+        elif isinstance(n, ast.Assign):
+            for t in n.targets:
+                if isinstance(t, ast.Name):
+                    names.add(t.id)
+                    if t.id == "__all__":
+                        names |= set(ast.literal_eval(n.value))
+    return names
+
+
+def test_every_reference_package_exports_what_the_check_reads():
+    """Each package directory under reference/ (one a configuration can
+    name under "reference") exports what check.Reference reads, has a
+    CLI with `main`, and the rounding shifts the control replaces."""
+    dirs = [d for d in sorted((BENCH / "reference").iterdir())
+            if d.is_dir() and d.name != "__pycache__"]
+    assert "dsvref" in [d.name for d in dirs]
+    for d in dirs:
+        init = d / "__init__.py"
+        assert init.is_file(), d
+        exported = bound_names(init)
+        assert set(check.ENTRIES) <= exported, (d, exported)
+        assert "main" in bound_names(d / "cli.py"), d
+        assert {"round2", "round4", "round8"} <= bound_names(
+            d / "ops" / "sbt.py"), d
+
+
 def test_only_program_py_imports_the_program():
     for f in sorted(BENCH.rglob("*.py")):
         if "tests" in f.parts or f.name == "program.py":

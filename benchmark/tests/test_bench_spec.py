@@ -42,11 +42,12 @@ def test_run_seconds_fit_a_check_of_24_cells():
 
 
 def test_names_letter_for_letter():
-    assert [w["name"] for w in BENCH["workloads"]] == CELLS
-    assert [m["name"] for m in BENCH["end_to_end"]] == E2E
-    assert [m["name"] for m in BENCH["per_layer"]] == PER_LAYER
-    assert [c["name"] for c in BENCH["configs"]] == ["crf_1080p",
-                                                     "abr_4k_cli"]
+    """PR 14's names stay first, in order and letter for letter; later
+    names only append."""
+    for key, first in (("workloads", CELLS), ("end_to_end", E2E),
+                       ("per_layer", PER_LAYER),
+                       ("configs", ["crf_1080p", "abr_4k_cli"])):
+        assert [x["name"] for x in BENCH[key]][:len(first)] == first, key
 
 
 def test_names_units_and_lines():
@@ -76,6 +77,9 @@ def test_config_files(c):
     for k in ("width", "height", "subsamp", "gop", "segment_frames",
               "api", "chips", "guarantee"):
         assert k in cfg
+    ref = cfg.get("reference", "dsvref")   # the package that judges it
+    assert ref.isidentifier()
+    assert (spec.BENCH / "reference" / ref).is_dir()
     files = [x["file"] for x in BENCH["configs"]]
     assert len(files) == len(set(files))
 
