@@ -70,7 +70,10 @@ frame's device work. `encode.read` spans each blocking read of a chunk
 (inside `gop.motion` and `gop.recon_chain`), `encode.intake` the
 reading and stacking of each chunk's input frames (`_chunks`), and
 `encode.finish` a request's end (the state read, the EOS, the stream's
-copy). tools/torch_profile.py and the benchmark's readers read them.
+copy). At gop 0 `gop.intra_core`, `gop.intra_compact` and
+`gop.intra_scan` name the core, the compaction and the overflow route's
+host scan (`_encode_intra`). tools/torch_profile.py and the benchmark's
+readers read them.
 """
 
 import math
@@ -521,6 +524,22 @@ def _no_p_arrays(C: int):
             np.zeros((C, 0, 1), np.uint8), np.zeros((C, 0, 1), np.uint8))
 
 
+def _intra_parts(dense, dcs, ll_sizes) -> dict:
+    """The compacted planes of a gop-0 chunk's frames (`dense`: per frame
+    its three quantized planes; `dcs`: per frame its (3,) int32 DCs) as
+    `fetch` reads them: each plane's `compact_dense_i` stacked over the
+    frames, the DCs and the overflow counts `nbig` (frames, 3)."""
+    comp = [[hzcc.compact_dense_i(qv, ll) for qv, ll in zip(qvals, ll_sizes)]
+            for qvals in dense]
+    parts = {"dc": torch.stack(dcs),
+             "nbig": torch.stack([torch.stack([p[3] for p in f])
+                                  for f in comp])}
+    for c in range(3):
+        for j, name in enumerate(("q8", "pos", "vals")):
+            parts[f"{name}{c}"] = torch.stack([f[c][j] for f in comp])
+    return parts
+
+
 def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev,
                   fnum_base: int = 0):
     """gop 0 (the JAX package's build_intra_encoder and its gop-0 branch
@@ -530,8 +549,13 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev,
     dsv_encoder.c:383-393). Frames go through in chunks: each frame's
     planes are compacted on the device (dense int8 plus the LL's large
     values), the host reads a chunk in one copy and packs it in one
-    native call; a chunk whose compaction overflowed is read dense and
-    packed picture by picture. Frame numbers start at fnum_base.
+    native call; a chunk whose compaction overflowed is read dense, its
+    planes scanned into (run, value) symbols on the host and packed
+    picture by picture. Spans: `gop.upload`, `gop.intra_core` (the prep
+    and the frames' core calls), `gop.intra_compact` (the compaction's
+    launches), `encode.read` (the compacted read and the dense redo),
+    `gop.pack` with a `gop.intra_scan` per overflowed picture's scan.
+    Frame numbers start at fnum_base.
     Returns (the stream without EOS, the last picture's length)."""
     w, h, subsamp = meta.width, meta.height, meta.subsamp
     blk_w, blk_h, nbh, nbv = block_geometry(w, h)
@@ -548,32 +572,28 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev,
     prev_link = 0
     for f0, rows, k in _chunks(frames, 1, chunk, pad=False):
         rows = rows[0]
+        STATS["intra_chunks"] += 1
         with record_function("gop.upload"):
             packed = torch.from_numpy(rows).to(dev)
         with record_function("gop.intra_core"):
             imgs, _al = prep(fr.split_packed_planes(packed, subsamp, w, h))
-            dense, comp, dcs = [], [], []
+            dense, dcs = [], []
             for img in imgs[0]:
                 qvals, dc, _ = core(img, None, False, quant, stable,
                                     None, None, None, None)
                 dense.append(qvals)
-                comp.append([hzcc.compact_dense_i(qv, ll)
-                             for qv, ll in zip(qvals, ll_sizes)])
                 dcs.append(torch.stack(dc).to(torch.int32))
-            parts = {"dc": torch.stack(dcs),
-                     "nbig": torch.stack([torch.stack([p[3] for p in f])
-                                          for f in comp])}
-            for c in range(3):
-                for j, name in enumerate(("q8", "pos", "vals")):
-                    parts[f"{name}{c}"] = torch.stack([f[c][j] for f in comp])
+        with record_function("gop.intra_compact"):
+            parts = _intra_parts(dense, dcs, ll_sizes)
+        with record_function("encode.read"):
+            host = fetch(parts)   # one read per chunk
+        overflow = bool((host["nbig"] > 0).any())
+        STATS["overflow_i"] += overflow
+        if overflow:
+            STATS["overflow_redos"] += 1
             with record_function("encode.read"):
-                host = fetch(parts)   # one read per chunk
-            overflow = bool((host["nbig"] > 0).any())
-            STATS["overflow_i"] += overflow
-            if overflow:
-                STATS["overflow_redos"] += 1
-                with record_function("encode.read"):
-                    dense_h = fetch_dense(dense)
+                dense_h = fetch_dense(dense)
+            STATS["intra_dense_bytes"] += dense_h.nbytes
         with record_function("gop.pack"):
             if not overflow:
                 pkt, prev_link = bits.pack_chunk(
@@ -589,10 +609,12 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev,
                 continue
             sizes = [t.n for t in tables]
             for i, row in enumerate(dense_h):
+                with record_function("gop.intra_scan"):
+                    syms = [hzcc.runs_from_qvals(q)
+                            for q in split_row(row, sizes)]
                 pic = pack_picture(fnum_base + f0 + i, blk_w, blk_h,
-                                   stable_h, False, False, None, quant,
-                                   split_row(row, sizes), host["dc"][i], nbh,
-                                   nbv)
+                                   stable_h, False, False, None, quant, syms,
+                                   host["dc"][i], nbh, nbv)
                 set_link_offsets(pic, prev_link, len(pic))
                 prev_link = len(pic)
                 out.extend(meta_pkt)

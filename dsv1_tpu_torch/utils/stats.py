@@ -13,6 +13,8 @@ paths run; callers set it to 0 with `STATS.clear()`. Keys:
 - `core_calls_recon`: those of them that reconstructed their frames
   (all but gop 0's, whose frames are no reference);
 - `chunks`: chunks of GOPs the GOP path encoded (gop > 0);
+- `intra_chunks`: chunks of frames the intra-only path encoded (gop 0,
+  `parallel/gop.py _encode_intra`; one frame a chunk at UHD);
 - `stab_carried`: GOPs whose I frame found the stability accumulators
   carried from the GOP before (the refresh counter between 0 and its
   period), which the JAX package encodes a second time;
@@ -34,6 +36,9 @@ paths run; callers set it to 0 with `STATS.clear()`. Keys:
 - `overflow_exact`, `overflow_syms`: of those chunks, the ones of the
   GOP path, whose every symbol ops/hzcc.py `compact_exact` listed on the
   device (one call each), and the symbols they read;
+- `intra_dense_bytes`: of `d2h_bytes`, the bytes of the dense int32
+  planes that gop 0 reads back for its overflowed chunks (the dense
+  redo);
 - `overflow_i`, `overflow_p`: of those chunks on the GOP path and at
   gop 0, the ones whose I planes overflowed their cap of large values
   (`nbig`) and the ones whose P planes overflowed their cap of (run,

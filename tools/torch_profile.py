@@ -10,7 +10,8 @@ arguments utils/golden.py API gives them (`--gops-per-device N`
 overrides the chunk of an `encode_stream_gops` clip). Reads the layer
 spans the encoder records (per chunk of GOPs `gop.upload`, `gop.motion`,
 `gop.stability`, `gop.recon_chain` with `gop.rate_read` inside it under
-ABR, `gop.pack`, and `gop.intra_core` at gop 0, and `encode.intake`,
+ABR, `gop.pack`, and `gop.intra_core`, `gop.intra_compact` and
+`gop.intra_scan` (inside `gop.pack`) at gop 0, and `encode.intake`,
 `encode.read` (the blocking reads, inside the `gop.*` spans),
 `encode.finish`; parallel/gop.py; `cli.read`, `cli.write`, cli.py; per
 frame of the sequential Encoder `seq.motion`, `seq.core`, `seq.pack`;
@@ -43,10 +44,11 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 SPANS = ("gop.upload", "gop.motion", "gop.stability", "gop.recon_chain",
-         "gop.rate_read", "gop.pack", "gop.intra_core", "seq.motion",
-         "seq.core", "seq.pack", "encode.intake", "encode.read",
-         "encode.finish", "cli.read", "cli.write", "decode.parse",
-         "decode.upload", "decode.chain", "decode.read")
+         "gop.rate_read", "gop.pack", "gop.intra_core", "gop.intra_compact",
+         "gop.intra_scan", "seq.motion", "seq.core", "seq.pack",
+         "encode.intake", "encode.read", "encode.finish", "cli.read",
+         "cli.write", "decode.parse", "decode.upload", "decode.chain",
+         "decode.read")
 
 
 def _sync():
