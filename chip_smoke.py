@@ -37,10 +37,11 @@ non-zero:
    unit (a luma plane; the prologue a frame), with 4K and CIF beside it;
    and `hzcc_compact` (`hzcc.compact_exact`, the exact compaction of an
    overflowed chunk) on a 12-frame chunk at 1080p, at 4K with both caps
-   overflowed and at CIF (4 GOPs), timed at 4K beside the host route it
-   replaced (`compact_rows`). Equality is exact (tolerance
-   0: the codec is integer-only). Each kernel is timed with CUDA events
-   after warm-up, wrappers included, and with torch.profiler (device
+   overflowed, at CIF (4 GOPs) and on one UHD intra frame's row (gop 0's
+   chunk at UHD, I cap overflowed), timed at 4K and on the intra row
+   beside the host route it replaced (`compact_rows`). Equality is exact
+   (tolerance 0: the codec is integer-only). Each kernel is timed with
+   CUDA events after warm-up, wrappers included, and with torch.profiler (device
    only: the union of each call's kernel intervals). Each row gets the least time the card could take
    for the same work (bytes over 3.35 TB/s, integer operations over 132
    SMs x 64 INT32 lanes x the SM clock, the larger of the two). The HME
@@ -71,7 +72,11 @@ non-zero:
    ways (the CLI's default decode, -drawinfo7 through the sequential
    `Decoder`, and `Decoder().decode_stream` through the API), and
    `1080p_gop0_cli` (12 frames, -gop0 -rc_mode1: intra only through
-   `encode_stream_gops`) with its decode.
+   `encode_stream_gops`) with its decode; then `4k_gop0`: 4k_cli's first
+   4 frames at -gop0 -rc_mode1, each overflowing the I cap, through
+   `encode_stream_gops` (the exact compaction, `hzcc_compact`'s launches
+   counted from that run alone) and through the sequential `Encoder`
+   (the dense read): the same bytes.
 8. effort  — the wider level-0 motion search (-effort1..3): first kernel
    #2 at level 0 (`hme_kernels.refine_level`, `hme_refine_level0`) and
    `hme_wide` (`hme_kernels.refine_wide`) against their plain versions
@@ -203,6 +208,8 @@ SLICE_CLIPS = ("cif", "1080p")     # encode_stream_gops, CRF
 CLI_CLIPS = ("cif_cli", "4k_cli", "1080p_gopabr_cli")
 GOPABR_CLIP = "1080p_gopabr_cli"
 SEQ_CLIP, GOP0_CLIP = "1080p_seq_cli", "1080p_gop0_cli"
+# 4k_cli's first frames at gop 0 (one frame a chunk, each overflowing)
+UHD_GOP0_FRAMES = 4
 # the CLI at -effort3 (per-frame ABR, 1080p and 4K), -gopar0 -effort2
 EFFORT_CLIPS = ("1080p_effort_cli", "4k_effort_cli", "1080p_effort_seq_cli")
 EFFORT_SEQ_CLIP = "1080p_effort_seq_cli"
@@ -961,14 +968,48 @@ def compact_chunk(dev, w, h, C, seed, dense=False):
     return planes, np.stack(counts), tables
 
 
+def intra_row(dev, w, h, seed):
+    """One gop-0 frame's quantized planes as `_encode_intra` hands them
+    to the exact compaction when its chunk is one frame, as at UHD (per
+    plane c, (1, N_c) int32 on dev) with their nonzero counts (3, 1):
+    12 % nonzero, an empty stretch of 70,000 positions (a run past
+    0xFFFE), values past int16 and |q| > 127 outside the LL, so the
+    I cap overflows."""
+    import numpy as np
+    import torch
+
+    import dsv1_tpu_torch as dt
+    from dsv1_tpu_torch.models.encoder import block_geometry, coef_geometry
+    rng = np.random.default_rng(seed)
+    tables = coef_geometry(dt.SUBSAMP_420, w, h,
+                           *block_geometry(w, h)[2:])[2]
+    planes, counts = [], []
+    for c, t in enumerate(tables):
+        g = torch.Generator(device=dev).manual_seed(seed * 5 + c)
+        u = torch.rand((1, t.n), generator=g, device=dev)
+        mag = torch.randint(1, 60, (1, t.n), generator=g, device=dev,
+                            dtype=torch.int32)
+        q = torch.where(u < 0.12, torch.where(u < 0.04, -mag, mag), 0) \
+            .to(torch.int32)
+        q[0, 1000:71000] = 0
+        q[0, rng.integers(71000, t.n, 4)] = torch.tensor(
+            [40000, -70000, 300, -128], dtype=torch.int32, device=dev)
+        q[0, t.n - 1] = 1000
+        planes.append(q.contiguous())
+        counts.append((q != 0).sum(-1).cpu().numpy())
+    return planes, np.stack(counts), tables
+
+
 def compact_rows(dev, bound):
     """`hzcc_compact` (ops/hzcc.py compact_exact, csrc/hzcc.cu) against
     its plain version on a 12-frame chunk at 1080p (1 GOP), at 4K with
-    both caps overflowed (the compactions' verdicts say so) and at CIF (4
-    GOPs a chunk, the JAX rule), three launches a call; timed at 4K
-    beside the route it replaced on the host (the dense int32 read and
-    numpy runs_from_qvals a plane of every frame) and its own (the
-    kernel, the one read of the lists and their cutting), host clock."""
+    both caps overflowed (the compactions' verdicts say so), at CIF (4
+    GOPs a chunk, the JAX rule) and on one UHD intra frame's row, gop
+    0's chunk at UHD, with the I cap overflowed (`intra_row`), three
+    launches a call; timed at 4K and on the UHD intra row beside the
+    route it replaced on the host (the dense int32 read and numpy
+    runs_from_qvals a plane of every frame) and its own (the kernel, the
+    one read of the lists and their cutting), host clock."""
     import numpy as np
     import torch
 
@@ -978,8 +1019,15 @@ def compact_rows(dev, bound):
     err, extra, cases = 0, {}, []
     for name, (w, h), C, dense in (("1080p", (1920, 1080), 1, False),
                                    ("4k", (3840, 2160), 1, True),
-                                   ("cif", (352, 288), 4, False)):
-        planes, counts, tables = compact_chunk(dev, w, h, C, 17, dense)
+                                   ("cif", (352, 288), 4, False),
+                                   ("4k_intra", (3840, 2160), 1, False)):
+        intra = name == "4k_intra"
+        if intra:
+            planes, counts, tables = intra_row(dev, w, h, 17)
+            i_rows = planes
+        else:
+            planes, counts, tables = compact_chunk(dev, w, h, C, 17, dense)
+            i_rows = [q[:, 0] for q in planes]
         total = int(counts.sum())
         before = LAUNCHES["hzcc_compact"]
         got = hzcc.compact_exact(planes, total)
@@ -993,24 +1041,29 @@ def compact_rows(dev, bound):
         lists = hzcc.exact_lists(host, counts)
         dq = [q.reshape(-1, q.shape[-1]).cpu().numpy() for q in planes]
         for c in range(3):
-            for r in (0, 2, 3, 4, len(dq[c]) - 1):
+            for r in sorted({0, 2, 3, 4, len(dq[c]) - 1}
+                            & set(range(len(dq[c])))):
                 want_r = hzcc.runs_from_qvals(dq[c][r])
                 if not (np.array_equal(lists[c][r][0], want_r[0])
                         and np.array_equal(lists[c][r][1], want_r[1])):
                     raise AssertionError(f"hzcc_compact {name}: plane {c} "
                                          f"row {r} differs from "
                                          "runs_from_qvals")
-        ovf_i = any(int(hzcc.compact_dense_i(q[:, 0], hzcc.ll_size(t))[3]
-                        .max()) > 0 for q, t in zip(planes, tables))
-        ovf_p = any(bool(hzcc.compact_sparse_p(q[:, 1:], 16)[3].any())
-                    for q in planes)
+        ovf_i = any(int(hzcc.compact_dense_i(q, hzcc.ll_size(t))[3]
+                        .max()) > 0 for q, t in zip(i_rows, tables))
+        ovf_p = not intra and any(
+            bool(hzcc.compact_sparse_p(q[:, 1:], 16)[3].any())
+            for q in planes)
         positions = sum(q.numel() for q in planes)
         work = (4 * positions + 8 * total + 4, 0)
-        cases.append({"case": name, "rows": 12 * C, "positions": positions,
-                      "symbols": total, "mismatches": bad,
-                      "overflow_i": ovf_i, "overflow_p": ovf_p})
+        cases.append({"case": name, "rows": 1 if intra else 12 * C,
+                      "positions": positions, "symbols": total,
+                      "mismatches": bad, "overflow_i": ovf_i,
+                      "overflow_p": ovf_p})
         if name == "4k" and not (ovf_i and ovf_p):
             raise AssertionError("the 4K chunk must overflow both caps")
+        if intra and not ovf_i:
+            raise AssertionError("the UHD intra row must overflow the I cap")
         fn = lambda: hzcc.compact_exact(planes, total)  # noqa: E731
         tag = "" if name == "4k" else f"_{name}"
         extra.update({f"ms{tag}": cuda_ms(fn, 20),
@@ -1018,7 +1071,7 @@ def compact_rows(dev, bound):
                       f"plain_ms{tag}": cuda_ms(
                           lambda: hzcc.compact_exact_plain(planes, total), 3),
                       f"bound_ms{tag}": bound(*work)[0]})
-        if name == "4k":
+        if name in ("4k", "4k_intra"):
             def parent_route():
                 d = fetch({"dense": torch.cat(planes, -1)})["dense"]
                 off = np.cumsum([0] + [t.n for t in tables])
@@ -1035,7 +1088,7 @@ def compact_rows(dev, bound):
                 t0 = time.perf_counter()
                 for _ in range(3):
                     fn()
-                extra[key] = (time.perf_counter() - t0) * 1e3 / 3
+                extra[key + tag] = (time.perf_counter() - t0) * 1e3 / 3
         del planes, got, want, host, lists, dq
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "compact_cases": cases})
@@ -1044,7 +1097,9 @@ def compact_rows(dev, bound):
                "planes, ops/hzcc.py)", err, extra.pop("ms"),
                extra.pop("plain_ms"), extra.pop("bound_ms"), "bytes",
                shape="a 12-frame 4K chunk (149 M positions), both caps "
-                     "overflowed; *_1080p: 1 GOP, *_cif: 4 GOPs",
+                     "overflowed; *_1080p: 1 GOP, *_cif: 4 GOPs; "
+                     "*_4k_intra: one UHD intra frame (12.4 M positions, "
+                     "12 % nonzero), the I cap overflowed",
                launches_per_call=3, **extra)
 
 
@@ -1299,7 +1354,7 @@ def predict_launches(stats, w: int, h: int, tiles: int = 1) -> dict:
     `inv_sbt` `inv_plan`'s launches a plane. In column tiles the B4T and
     the inverse run on their kernels only for planes whose transforms
     are not split (`tiled_whole`). `hzcc_compact` three launches per
-    chunk of the GOP path whose compaction overflowed
+    chunk of the GOP path or of gop 0 whose compaction overflowed
     (`overflow_exact`)."""
     from dsv1_tpu_torch.models.encoder import (auto_pyramid_levels,
                                                block_geometry, coef_geometry)
@@ -1621,6 +1676,46 @@ def phase_sequential(dev, smi, golden, clips):
             bad = [k for k, v in res.items() if k.endswith("_ok") and not v]
             if bad:
                 raise AssertionError(f"{name}: {bad} differ from the golden")
+    # gop 0 at UHD, where every frame overflows the I cap: the exact
+    # compaction of encode_stream_gops against the sequential Encoder's
+    # dense read of the same frames
+    gold = {"width": 3840, "height": 2160}
+    frames = clips["4k_cli"][1][:UHD_GOP0_FRAMES]
+    meta, cfg, _abr = cli.encode_config(["-w3840", "-h2160", "-gop0",
+                                         "-rc_mode1"])
+    intra_path = ("haar_fwd", "residual_in", "b4t_fwd", "hzcc_quant")
+    t_par, l_par, stream = run(
+        "4k_gop0 encode_stream_gops",
+        lambda: dt.encode_stream_gops(frames, meta, cfg, dev),
+        intra_path + ("hzcc_compact",),
+        ("mc", "hme_refine", "hme_base", "hme_wide", "inv_sbt"))
+    st = dict(STATS)
+
+    def sequential():
+        enc = dt.Encoder(meta, cfg, device=dev)
+        enc.start()
+        return enc.encode_stream(frames)
+    t_seq, l_seq, want = run("4k_gop0 Encoder", sequential, intra_path,
+                             ("hzcc_compact",))
+    res = {"phase": "sequential", "clip": "4k_gop0",
+           "size": "3840x2160", "frames": len(frames),
+           "argv": ["-gop0", "-rc_mode1"], "stream_bytes": len(stream),
+           "stream_equals_encoder_ok": stream == want,
+           "every_chunk_exact_ok": st.get("overflow_exact", 0)
+           == st.get("overflow_redos", 0) == st.get("intra_chunks", 0)
+           == len(frames),
+           "overflow_syms": st.get("overflow_syms", 0),
+           "no_dense_read_ok": not st.get("intra_dense_bytes", 0),
+           "encode_fps": len(frames) / t_par,
+           "encoder_fps": len(frames) / t_seq,
+           "encode_launches": l_par, "encoder_launches": l_seq,
+           "launches_as_predicted": True,
+           "d2h_bytes": st.get("d2h_bytes", 0),
+           "host_reads": st.get("host_reads", 0), "card": smi}
+    emit(res)
+    bad = [k for k, v in res.items() if k.endswith("_ok") and not v]
+    if bad:
+        raise AssertionError(f"4k_gop0: {bad} failed")
     emit({"phase": "sequential", "launches": total})
     return total
 

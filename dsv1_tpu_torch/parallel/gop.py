@@ -28,7 +28,8 @@ tail is padded to a full chunk by repeating its last frame, as in the
 JAX package; padded frames are encoded and dropped at pack time. Frames
 are read chunk by chunk: a long or large input is never held whole. At
 gop 0 (intra only) every frame is its own GOP with no HME and no recon,
-and frames go through in chunks (`_encode_intra`).
+and frames go through in chunks (`_encode_intra`), an overflowed chunk
+through the same exact compaction.
 
 Over a mesh (`mesh=`: a GOP mesh, or a gop x tile mesh, parallel/mesh.py)
 a chunk is C GOPs for each row of the mesh (a 'gop' index), split
@@ -70,10 +71,10 @@ frame's device work. `encode.read` spans each blocking read of a chunk
 (inside `gop.motion` and `gop.recon_chain`), `encode.intake` the
 reading and stacking of each chunk's input frames (`_chunks`), and
 `encode.finish` a request's end (the state read, the EOS, the stream's
-copy). At gop 0 `gop.intra_core`, `gop.intra_compact` and
-`gop.intra_scan` name the core, the compaction and the overflow route's
-host scan (`_encode_intra`). tools/torch_profile.py and the benchmark's
-readers read them.
+copy). At gop 0 `gop.intra_core` and `gop.intra_compact` name the core
+and the compactions, the capped one and on overflow the exact one
+(`_encode_intra`). tools/torch_profile.py and the benchmark's readers
+read them.
 """
 
 import math
@@ -99,11 +100,11 @@ from ..models.encoder import (MOTION_KEYS, MV_KEYS, EncoderConfig,
                               block_geometry, build_encode_core,
                               coef_geometry, crf_quant,
                               make_encode_core_traced, make_prep,
-                              pack_picture, pyr_layouts, split_row)
+                              pack_picture, pyr_layouts)
 from ..ops import frame as fr, hzcc, piclen, rc
 from ..ops.hme import hme_batch
 from ..state import EncoderState
-from ..utils.blob import fetch, fetch_dense, to_host
+from ..utils.blob import fetch, to_host
 from ..utils.stats import STATS
 from .mesh import Mesh, gop_rows
 from .tile import tile_hook
@@ -528,12 +529,16 @@ def _intra_parts(dense, dcs, ll_sizes) -> dict:
     """The compacted planes of a gop-0 chunk's frames (`dense`: per frame
     its three quantized planes; `dcs`: per frame its (3,) int32 DCs) as
     `fetch` reads them: each plane's `compact_dense_i` stacked over the
-    frames, the DCs and the overflow counts `nbig` (frames, 3)."""
+    frames, the DCs, the overflow counts `nbig` (frames, 3) and the
+    nonzero counts `cnt` (frames, 3), which size the exact compaction's
+    lists where a cap overflows."""
     comp = [[hzcc.compact_dense_i(qv, ll) for qv, ll in zip(qvals, ll_sizes)]
             for qvals in dense]
     parts = {"dc": torch.stack(dcs),
              "nbig": torch.stack([torch.stack([p[3] for p in f])
-                                  for f in comp])}
+                                  for f in comp]),
+             "cnt": torch.stack([torch.stack([(qv != 0).sum(
+                 dtype=torch.int32) for qv in qvals]) for qvals in dense])}
     for c in range(3):
         for j, name in enumerate(("q8", "pos", "vals")):
             parts[f"{name}{c}"] = torch.stack([f[c][j] for f in comp])
@@ -549,13 +554,14 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev,
     dsv_encoder.c:383-393). Frames go through in chunks: each frame's
     planes are compacted on the device (dense int8 plus the LL's large
     values), the host reads a chunk in one copy and packs it in one
-    native call; a chunk whose compaction overflowed is read dense, its
-    planes scanned into (run, value) symbols on the host and packed
-    picture by picture. Spans: `gop.upload`, `gop.intra_core` (the prep
-    and the frames' core calls), `gop.intra_compact` (the compaction's
-    launches), `encode.read` (the compacted read and the dense redo),
-    `gop.pack` with a `gop.intra_scan` per overflowed picture's scan.
-    Frame numbers start at fnum_base.
+    native call; where the compaction overflowed, the device lists every
+    symbol of the chunk's planes exactly (hzcc.compact_exact, at offsets
+    from the nonzero counts of the first read), the host reads the
+    (run, value) lists and packs them picture by picture: the same bytes.
+    Spans: `gop.upload`, `gop.intra_core` (the prep and the frames' core
+    calls), `gop.intra_compact` (the compaction's launches, and the exact
+    compaction's on overflow), `encode.read` (the compacted read and the
+    lists' read), `gop.pack`. Frame numbers start at fnum_base.
     Returns (the stream without EOS, the last picture's length)."""
     w, h, subsamp = meta.width, meta.height, meta.subsamp
     blk_w, blk_h, nbh, nbv = block_geometry(w, h)
@@ -590,10 +596,21 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev,
         overflow = bool((host["nbig"] > 0).any())
         STATS["overflow_i"] += overflow
         if overflow:
+            # the I cap overflowed: every symbol of the chunk's planes,
+            # still on the device, is listed exactly at offsets from the
+            # counts read above, and packed instead (the JAX package reads
+            # the same planes dense)
             STATS["overflow_redos"] += 1
+            cnt = host["cnt"].T
+            total = int(cnt.sum())
+            STATS["overflow_exact"] += 1
+            STATS["overflow_syms"] += total
+            with record_function("gop.intra_compact"):
+                buf = hzcc.compact_exact(
+                    [torch.stack([qvals[c] for qvals in dense])
+                     .to(torch.int32) for c in range(3)], total)
             with record_function("encode.read"):
-                dense_h = fetch_dense(dense)
-            STATS["intra_dense_bytes"] += dense_h.nbytes
+                lists = hzcc.exact_lists(fetch({"syms": buf})["syms"], cnt)
         with record_function("gop.pack"):
             if not overflow:
                 pkt, prev_link = bits.pack_chunk(
@@ -607,13 +624,10 @@ def _encode_intra(frames, meta: Metadata, cfg: EncoderConfig, dev,
                     prev_link)
                 out.extend(pkt)
                 continue
-            sizes = [t.n for t in tables]
-            for i, row in enumerate(dense_h):
-                with record_function("gop.intra_scan"):
-                    syms = [hzcc.runs_from_qvals(q)
-                            for q in split_row(row, sizes)]
+            for i in range(k):
                 pic = pack_picture(fnum_base + f0 + i, blk_w, blk_h,
-                                   stable_h, False, False, None, quant, syms,
+                                   stable_h, False, False, None, quant,
+                                   [lists[c][i] for c in range(3)],
                                    host["dc"][i], nbh, nbv)
                 set_link_offsets(pic, prev_link, len(pic))
                 prev_link = len(pic)

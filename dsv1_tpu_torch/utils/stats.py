@@ -31,14 +31,15 @@ paths run; callers set it to 0 with `STATS.clear()`. Keys:
   chains on one device, or one picture of the sequential `Decoder`);
 - `overflow_redos`: chunks of GOPs (gop 0: chunks of frames;
   sequential: frames) whose compacted planes overflowed their caps and
-  were packed from uncapped symbols instead (gop 0 and sequential: from
-  the dense planes);
+  were packed from uncapped symbols instead (sequential: from the dense
+  planes);
 - `overflow_exact`, `overflow_syms`: of those chunks, the ones of the
-  GOP path, whose every symbol ops/hzcc.py `compact_exact` listed on the
-  device (one call each), and the symbols they read;
-- `intra_dense_bytes`: of `d2h_bytes`, the bytes of the dense int32
-  planes that gop 0 reads back for its overflowed chunks (the dense
-  redo);
+  GOP path and of gop 0, whose every symbol ops/hzcc.py `compact_exact`
+  listed on the device (one call each), and the symbols they read;
+- `intra_dense_bytes`: of `d2h_bytes`, the bytes of dense int32 planes
+  that gop 0 read back for its overflowed chunks; no path adds to it
+  since gop 0 takes the exact compaction, so it stays absent (the
+  benchmark's `intra.dense_mb_per_frame` still reads it, as 0);
 - `overflow_i`, `overflow_p`: of those chunks on the GOP path and at
   gop 0, the ones whose I planes overflowed their cap of large values
   (`nbig`) and the ones whose P planes overflowed their cap of (run,

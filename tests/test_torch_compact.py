@@ -288,3 +288,17 @@ def test_exact_route_on_i_cap_overflow_matches_jax(clip, caps):
     assert stats["overflow_redos"] == stats["overflow_exact"] == 1
     assert stats["overflow_i"] >= 1 and stats["overflow_syms"] > 0
     assert bool(stats.get("overflow_p")) == ("p" in caps)
+
+
+@pytest.mark.parametrize("clip", ["checker", "noise"])
+def test_exact_route_at_gop0_matches_jax(clip):
+    """gop 0's chunks of intra frames whose I cap overflows are packed
+    from the exact compaction's lists, and the bytes stay JAX's."""
+    frames = {"checker": _checker, "noise": _noise}[clip](4)
+    stats = _check_stream(frames, dict(quality=quality_percent(100),
+                                       gop=GOP_INTRA))
+    assert stats["overflow_redos"] >= 1
+    assert stats["overflow_exact"] == stats["overflow_redos"]
+    assert stats["overflow_i"] == stats["overflow_redos"]
+    assert stats["overflow_syms"] > 0
+    assert "intra_dense_bytes" not in stats

@@ -10,25 +10,24 @@ arguments utils/golden.py API gives them (`--gops-per-device N`
 overrides the chunk of an `encode_stream_gops` clip). Reads the layer
 spans the encoder records (per chunk of GOPs `gop.upload`, `gop.motion`,
 `gop.stability`, `gop.recon_chain` with `gop.rate_read` inside it under
-ABR, `gop.pack`, and `gop.intra_core`, `gop.intra_compact` and
-`gop.intra_scan` (inside `gop.pack`) at gop 0, and `encode.intake`,
-`encode.read` (the blocking reads, inside the `gop.*` spans),
-`encode.finish`; parallel/gop.py; `cli.read`, `cli.write`, cli.py; per
-frame of the sequential Encoder `seq.motion`, `seq.core`, `seq.pack`;
-models/encoder.py; the decode's `decode.parse`, `decode.upload`,
-`decode.chain`, `decode.read`, parallel/decode.py), the device busy share, the
-top device kernels, the device kernels launched per encoded frame
-(kernel events, memcpy and memset left out, over the clip's frames), the
-device-to-host copies per frame (the host's reads of the device) and
-their bytes per frame (the `bytes` of the trace's device-to-host memcpy
-events), and the encode's `overflow_redos` (GOPs whose compacted planes
-overflowed, dsv1_tpu_torch/utils/stats.py; null on a tree without
-it); then profiles the decode of the stream the same way. The same
-encode also runs once without the profiler, so the profiler's own cost
-shows, and the decode once without it too. The last line sums up:
-the encode's kernels, host reads and their bytes per frame, both
-busy shares and unprofiled walls, and the spans' seconds. Needs a CUDA
-device.
+ABR, `gop.pack`, and `gop.intra_core` and `gop.intra_compact` at gop 0,
+and `encode.intake`, `encode.read` (the blocking reads, inside the
+`gop.*` spans), `encode.finish`; parallel/gop.py; `cli.read`,
+`cli.write`, cli.py; per frame of the sequential Encoder `seq.motion`,
+`seq.core`, `seq.pack`; models/encoder.py; the decode's `decode.parse`,
+`decode.upload`, `decode.chain`, `decode.read`, parallel/decode.py), the
+device busy share, the top device kernels, the device kernels launched
+per encoded frame (kernel events, memcpy and memset left out, over the
+clip's frames), the device-to-host copies per frame (the host's reads of
+the device) and their bytes per frame (the `bytes` of the trace's
+device-to-host memcpy events), and the encode's `overflow_redos` (GOPs
+whose compacted planes overflowed, dsv1_tpu_torch/utils/stats.py; null
+on a tree without it); then profiles the decode of the stream the same
+way. The same encode also runs once without the profiler, so the
+profiler's own cost shows, and the decode once without it too. The last
+line sums up: the encode's kernels, host reads and their bytes per
+frame, both busy shares and unprofiled walls, and the spans' seconds.
+Needs a CUDA device.
 
     python3 tools/torch_profile.py [--clip NAME] [--out FILE]
         [--gops-per-device N]
@@ -45,10 +44,9 @@ sys.path.insert(0, str(ROOT))
 
 SPANS = ("gop.upload", "gop.motion", "gop.stability", "gop.recon_chain",
          "gop.rate_read", "gop.pack", "gop.intra_core", "gop.intra_compact",
-         "gop.intra_scan", "seq.motion", "seq.core", "seq.pack",
-         "encode.intake", "encode.read", "encode.finish", "cli.read",
-         "cli.write", "decode.parse", "decode.upload", "decode.chain",
-         "decode.read")
+         "seq.motion", "seq.core", "seq.pack", "encode.intake",
+         "encode.read", "encode.finish", "cli.read", "cli.write",
+         "decode.parse", "decode.upload", "decode.chain", "decode.read")
 
 
 def _sync():
